@@ -3,9 +3,10 @@
 Three artifacts, each built at first use into ``build/molar_tpu_torch/``
 (listed in ``.gitignore``) and rebuilt when a source is newer:
 
-* ``libwithin_ghost.so`` — the CUDA kernels in ``csrc/*.cu``, compiled by
-  ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
-  (loaded with ctypes, no PyTorch headers: seconds to build, not minutes);
+* ``libmolar_kernels.so`` — the CUDA kernels in ``csrc/*.cu``, each source
+  compiled by its own ``nvcc`` for ``sm_90a`` (all started together), then
+  linked into one shared library with a plain C interface (loaded with
+  ctypes, no PyTorch headers: seconds to build, not minutes);
 * ``libxtc_codec.so`` — ``molar_tpu/native/xtc_codec.cpp``, compiled by path
   with ``g++`` (the codec is shared, not copied; nothing is imported from
   ``molar_tpu``);
@@ -29,13 +30,13 @@ PKG_DIR = pathlib.Path(__file__).resolve().parent
 REPO_DIR = PKG_DIR.parent
 BUILD_DIR = REPO_DIR / "build" / "molar_tpu_torch"
 
-KERNEL_SOURCES = [PKG_DIR / "csrc" / "within_ghost.cu"]
+KERNEL_SOURCES = [PKG_DIR / "csrc" / "within_ghost.cu", PKG_DIR / "csrc" / "within_rows.cu"]
 CODEC_SOURCE = REPO_DIR / "molar_tpu" / "native" / "xtc_codec.cpp"
 BASELINE_SOURCE = REPO_DIR / "benchmarks" / "native_baseline.cpp"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # The kernels compute d^2 with explicit _rn intrinsics; --fmad=false
     # also keeps any other float expression from contracting into an FMA,
     # so rounding matches the plain torch versions.
@@ -97,13 +98,53 @@ def nvcc_path() -> str:
     raise BuildError("nvcc not found (CUDA toolkit required for the kernels)")
 
 
+def _compile_objects(nvcc: str, sources) -> tuple[list[pathlib.Path], str]:
+    """One ``nvcc -c`` per source, all running at once, each into its own
+    temporary object. Returns (objects, diagnostics); raises
+    :class:`BuildError` (after every compiler has ended) if any failed."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    try:
+        for src in sources:
+            if not pathlib.Path(src).is_file():
+                raise BuildError(f"missing source {src}")
+            fd, obj = tempfile.mkstemp(prefix=pathlib.Path(src).stem + ".", suffix=".o",
+                                       dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            jobs.append((cmd, pathlib.Path(obj), subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = "", []
+        for cmd, _, proc in jobs:
+            out = proc.communicate()[0]
+            log += out
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}:\n{out}")
+        if failed:
+            raise BuildError("kernel build failed:\n" + "\n".join(failed))
+    except BaseException:
+        for _, obj, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            obj.unlink(missing_ok=True)
+        raise
+    return [obj for _, obj, _ in jobs], log
+
+
 def build_kernels() -> tuple[pathlib.Path, str]:
     """The CUDA kernel library; returns (path, compiler diagnostics — the
     ``-Xptxas -v`` register/spill report, empty when already built)."""
-    out = BUILD_DIR / "libwithin_ghost.so"
+    out = BUILD_DIR / "libmolar_kernels.so"
     log = ""
     if _stale(out, KERNEL_SOURCES):
-        log = _compile([nvcc_path(), *NVCC_FLAGS], KERNEL_SOURCES, out)
+        nvcc = nvcc_path()
+        objects, log = _compile_objects(nvcc, KERNEL_SOURCES)
+        try:
+            log += _compile([nvcc, "-shared"], objects, out)
+        finally:
+            for obj in objects:
+                obj.unlink(missing_ok=True)
     return out, log
 
 

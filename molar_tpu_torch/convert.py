@@ -45,17 +45,21 @@ def transport_to_torch(window, device, non_blocking: bool = False):
     return transport, conv(boxes), conv(invs)
 
 
-def from_numpy(ref_coords, masses, protein_idx, box_matrix, cutoff, caps, dims, device):
+def from_numpy(ref_coords, masses, protein_idx, box_matrix, cutoff, caps, dims, device,
+               search: str = "ghost"):
     """Build the headline :class:`~molar_tpu_torch.headline.FitWithinWindow`
-    on ``device`` from numpy inputs. ``caps`` is ``(cap, tgt_cap)``.
-    ``box_matrix`` selects the search: an orthorhombic box takes the
-    ghost-slab path; a skewed one is rejected until the triclinic path is
-    ported."""
+    on ``device`` from numpy inputs. ``caps`` is ``(cap, tgt_cap,
+    max_tgt_cells)``. The route is picked here, on the host, from the numpy
+    box: a skewed box takes the triclinic correction path; an orthorhombic
+    one takes the row kernel with ``search="rows"`` and the ghost-slab
+    kernel with ``search="ghost"``."""
     from .headline import FitWithinWindow
 
+    if search not in ("ghost", "rows"):
+        raise ValueError(f"search must be 'ghost' or 'rows', got {search!r}")
     if PeriodicBox(box_matrix).is_triclinic:
-        raise NotImplementedError("triclinic boxes are not ported yet")
-    cap, tgt_cap = caps
+        search = "corrections"
+    cap, tgt_cap, max_tgt_cells = caps
     return FitWithinWindow(
         ref=torch.as_tensor(np.asarray(ref_coords, np.float32), dtype=FLOAT),
         masses=torch.as_tensor(np.asarray(masses, np.float32), dtype=FLOAT),
@@ -64,4 +68,6 @@ def from_numpy(ref_coords, masses, protein_idx, box_matrix, cutoff, caps, dims, 
         dims=tuple(int(d) for d in dims),
         cap=int(cap),
         tgt_cap=int(tgt_cap),
+        search=search,
+        max_tgt_cells=int(max_tgt_cells),
     ).to(device)

@@ -1,22 +1,36 @@
 """Cell-grid ``within`` search with periodic images, in torch.
 
-Counterpart of ``molar_tpu.ops.neighbor`` for the headline's search:
-points are wrapped into the unit cell, bucketed into fixed-capacity
-``(n_cells, cap)`` structure-of-arrays planes (stable argsort + rank in run +
-scatter), the targets go into ghost-padded ``(nx+2, ny+2, nz+2, tgt_cap)``
-planes whose border cells hold pre-shifted periodic images, and the 27-cell
-stencil then needs no gathers, no per-pair image math and no validity
-planes (pad slots are +-1e17 sentinels).
+Counterpart of ``molar_tpu.ops.neighbor``'s ``within_mask``: points are
+wrapped into the unit cell and bucketed into fixed-capacity ``(n_cells,
+cap)`` structure-of-arrays planes (stable argsort + rank in run + scatter).
+Two regimes, as in the JAX package:
 
-:func:`within_mask` runs the ghost-slab search: it builds the planes here
-and hands them to :func:`.neighbor_ghost.within_ghost`, which launches the
-hand-written kernel on CUDA tensors and runs its plain twin on CPU tensors.
-``within_mask(..., plain=True)`` runs the plain twin on any device (the
-counterpart of the JAX package's ``_within_ghost``): the reference the kernel
-is held against on the card. Static-shape contract as in the JAX
-package: ``dims``/``cap``/``tgt_cap`` are fixed, the search returns an
-overflow flag, and when the flag is set the mask is UNDEFINED (clipped ranks
-make duplicate scatter slots) — callers retry at a larger capacity.
+* ``corrections is None`` — the ghost-slab search. The targets go into
+  ghost-padded ``(nx+2, ny+2, nz+2, tgt_cap)`` planes whose border cells
+  hold pre-shifted periodic images, and the 27-cell stencil needs no
+  gathers, no per-pair image math and no validity planes (pad slots are
+  +-1e17 sentinels). The planes are built here and handed to
+  :func:`.neighbor_ghost.within_ghost`, which launches the hand-written
+  kernel on CUDA tensors and runs its plain twin on CPU tensors;
+  ``plain=True`` runs the twin on any device (the reference the kernel is
+  held against on the card).
+* ``corrections`` given — the per-pair min-image path of skewed boxes:
+  inverse transform, round, forward transform, then the running minimum
+  over the triclinic correction candidates, with validity planes (a
+  sentinel would round back to d ~ 0). Dense (every cell against its 27
+  neighbours) or, with ``max_tgt_cells``, sparse (the occupied target cells
+  only, hits scattered back into the source cells). Plain torch on every
+  device; the occupied-cell list is compacted without a host sync.
+
+Static-shape contract as in the JAX package: ``dims``/``cap``/``tgt_cap``
+(and ``max_tgt_cells``) are fixed, the search returns an overflow flag, and
+when the flag is set the mask is UNDEFINED (clipped ranks make duplicate
+scatter slots) — callers retry at a larger capacity.
+
+A skewed box's grid is sized from its perpendicular cell heights
+(:func:`grid_dims_for`), not from its vector lengths: a slab of
+``length / n`` is thinner than the cutoff when the box is skewed, and the
++-1 stencil then misses pairs two cells apart.
 
 The cutoff test is inclusive (d^2 <= cutoff^2, with cutoff^2 the f32 square
 of the f32 cutoff).
@@ -30,9 +44,9 @@ import numpy as np
 import torch
 
 from .. import config  # noqa: F401  (pins fp32 matmuls)
-from .neighbor_ghost import _ghost_stencil, within_ghost
+from .neighbor_ghost import _OFFSETS, _ghost_stencil, within_ghost
 
-__all__ = ["grid_dims", "estimate_caps", "within_mask"]
+__all__ = ["grid_dims", "grid_dims_for", "estimate_caps", "within_mask"]
 
 # Pad-slot sentinels of the source and target planes. Opposite signs keep
 # pad-vs-pad differences far from zero; every d^2 stays finite in f32.
@@ -43,6 +57,16 @@ TGT_PAD = 1e17
 def grid_dims(box_lengths, cutoff: float) -> tuple[int, int, int]:
     """Per-axis cell counts max(floor(extent / cutoff), 1). Host helper."""
     return tuple(max(int(np.floor(float(l) / cutoff)), 1) for l in box_lengths)
+
+
+def grid_dims_for(box, cutoff: float) -> tuple[int, int, int]:
+    """Cell counts for a host :class:`~molar_tpu_torch.core.pbc.PeriodicBox`:
+    from the perpendicular cell heights of a triclinic box (every slab at
+    least one cutoff thick), from the vector lengths otherwise (equal to
+    the heights for an orthorhombic box)."""
+    if box.is_triclinic:
+        return grid_dims(box.cell_heights(), cutoff)
+    return grid_dims(box.box_extents(), cutoff)
 
 
 def estimate_caps(coords, inv, dims, tgt_idx=None, margin: float = 1.2, round_to: int = 8):
@@ -197,6 +221,125 @@ def _search_args(coords, src_idx, tgt_idx, box, inv, dims):
     return sx, sy, sz, sflat, tx, ty, tz, tcx, tcy, tcz
 
 
+def _min_image_d2(dx, dy, dz, box, inv, corrections, pbc):
+    """Squared min-image norm of component planes (any broadcast shape), in
+    the JAX package's order: inverse transform, round (half to even) on the
+    periodic axes, forward transform, ``(x² + y²) + z²``; then, under full
+    PBC, the minimum over the ``(K, 3)`` correction candidates (zero rows
+    are no-ops), taken in one broadcast over a trailing K axis."""
+    fx, fy, fz = _apply3(inv, dx, dy, dz)
+    if pbc[0]:
+        fx = fx - torch.round(fx)
+    if pbc[1]:
+        fy = fy - torch.round(fy)
+    if pbc[2]:
+        fz = fz - torch.round(fz)
+    sx, sy, sz = _apply3(box, fx, fy, fz)
+    d2 = sx * sx + sy * sy + sz * sz
+    if corrections is None or not all(pbc):
+        return d2
+    cx = sx[..., None] + corrections[:, 0]
+    cy = sy[..., None] + corrections[:, 1]
+    cz = sz[..., None] + corrections[:, 2]
+    return torch.minimum(d2, (cx * cx + cy * cy + cz * cz).amin(dim=-1))
+
+
+def _neighbor_cells(cx, cy, cz, off, dims, pbc):
+    """Flat ids of the cells at offset ``off`` from cells (cx, cy, cz), and
+    whether each exists (a non-periodic axis has no cell past its edge)."""
+    ok = torch.ones_like(cx, dtype=torch.bool)
+    cs = []
+    for c, o, n, per in zip((cx, cy, cz), off, dims, pbc):
+        c = c + o
+        if per:
+            c = c % n
+        else:
+            ok = ok & (c >= 0) & (c < n)
+            c = c.clamp(0, n - 1)
+        cs.append(c)
+    return (cs[0] * dims[1] + cs[1]) * dims[2] + cs[2], ok
+
+
+def _cell_neighbor_ids(dims, pbc, device):
+    """(n_cells, 27) flat neighbour ids of every cell, -1 past a
+    non-periodic edge; on a grid with an axis of 1 or 2 cells, where
+    offsets alias, each row is sorted and its repeats set to -1. Built on
+    ``device`` from ``arange`` (no host data to copy)."""
+    nx, ny, nz = dims
+    ids = torch.arange(nx * ny * nz, device=device)[:, None]
+    o = torch.arange(27, device=device)[None, :]
+    flat, ok = _neighbor_cells(ids // (ny * nz), (ids // nz) % ny, ids % nz,
+                               (o // 9 - 1, (o // 3) % 3 - 1, o % 3 - 1), dims, pbc)
+    flat = torch.where(ok, flat, -1)
+    if min(dims) <= 2:
+        flat = flat.sort(dim=1).values
+        dup = torch.zeros_like(flat, dtype=torch.bool)
+        dup[:, 1:] = flat[:, 1:] == flat[:, :-1]
+        flat = torch.where(dup, -1, flat)
+    return flat
+
+
+def _occupied_cells(tflat, max_cells: int):
+    """The distinct cell ids of ``tflat`` in ascending order, padded to
+    ``max_cells`` -> (cells (padding reads cell 0), valid, overflow).
+    ``nonzero_static`` compacts into a fixed size, so nothing waits on the
+    host."""
+    sorted_t = torch.sort(tflat).values
+    is_first = torch.ones_like(sorted_t, dtype=torch.bool)
+    is_first[1:] = sorted_t[1:] != sorted_t[:-1]
+    pos = torch.nonzero_static(is_first, size=max_cells, fill_value=-1)[:, 0]
+    valid = pos >= 0
+    cells = torch.where(valid, sorted_t[pos.clamp(min=0)], 0)
+    return cells, valid, is_first.sum() > max_cells
+
+
+def _within_corrections(sx, sy, sz, sflat, tx, ty, tz, tcx, tcy, tcz, box, inv, corrections,
+                        dims, cap, tgt_cap, pbc, c2, max_tgt_cells):
+    """The per-pair min-image search (``molar_tpu.ops.neighbor.within_mask``'s
+    triclinic branch) -> (hit blocks (n_cells, cap), s_slot, s_order,
+    overflow)."""
+    nx, ny, nz = dims
+    n_cells = nx * ny * nz
+    tflat = (tcx * ny + tcy) * nz + tcz
+    (sxb, syb, szb, svalid), s_slot, s_order, s_ofl = _blocked_planes(
+        [sx, sy, sz, torch.ones_like(sx, dtype=torch.bool)], sflat, n_cells, cap,
+        [0.0, 0.0, 0.0, False])
+    (txb, tyb, tzb, tvalid), _, _, t_ofl = _blocked_planes(
+        [tx, ty, tz, torch.ones_like(tx, dtype=torch.bool)], tflat, n_cells, tgt_cap,
+        [0.0, 0.0, 0.0, False])
+
+    if max_tgt_cells is None:
+        # Dense: every source cell against its 27 neighbour rows.
+        nb = _cell_neighbor_ids(dims, pbc, sx.device)
+        hit = torch.zeros((n_cells, cap), dtype=torch.bool, device=sx.device)
+        for o in range(27):
+            cells = nb[:, o]
+            safe = cells.clamp(min=0)
+            d2 = _min_image_d2(txb[safe][:, None, :] - sxb[:, :, None],
+                               tyb[safe][:, None, :] - syb[:, :, None],
+                               tzb[safe][:, None, :] - szb[:, :, None], box, inv, corrections, pbc)
+            ok = (cells >= 0)[:, None, None] & tvalid[safe][:, None, :]
+            hit |= (ok & (d2 <= c2)).any(dim=2)
+        return hit & svalid, s_slot, s_order, s_ofl | t_ofl
+
+    # Sparse: the occupied target cells only, each against its 27
+    # neighbouring source cells; hits are summed back into the source
+    # blocks (an index_add, since padding rows repeat cell 0). No grid has
+    # more occupied cells than cells, so slots beyond n_cells are dropped.
+    occ, occ_valid, occ_ofl = _occupied_cells(tflat, min(max_tgt_cells, n_cells))
+    ocx, ocy, ocz = occ // (ny * nz), (occ // nz) % ny, occ % nz
+    otx, oty, otz = txb[occ][:, None, :], tyb[occ][:, None, :], tzb[occ][:, None, :]
+    otv = tvalid[occ][:, None, :] & occ_valid[:, None, None]
+    hits = torch.zeros((n_cells, cap), dtype=torch.int32, device=sx.device)
+    for off in _OFFSETS:
+        scells, ok = _neighbor_cells(ocx, ocy, ocz, off, dims, pbc)
+        d2 = _min_image_d2(otx - sxb[scells][:, :, None], oty - syb[scells][:, :, None],
+                           otz - szb[scells][:, :, None], box, inv, corrections, pbc)
+        hit = (otv & (d2 <= c2)).any(dim=2) & (ok & occ_valid)[:, None]
+        hits.index_add_(0, scells, hit.to(torch.int32))
+    return (hits > 0) & svalid, s_slot, s_order, s_ofl | t_ofl | occ_ofl
+
+
 def within_mask(
     coords,
     src_idx,
@@ -209,6 +352,7 @@ def within_mask(
     cap: int = 32,
     pbc=(True, True, True),
     tgt_cap=None,
+    max_tgt_cells=None,
     plain: bool = False,
 ):
     """Boolean mask over ``src_idx`` (all atoms when None): has >= 1
@@ -216,18 +360,23 @@ def within_mask(
     frame; ``box``/``inv`` are (3, 3) tensors on the coords' device.
 
     ``corrections is None`` asserts an orthorhombic box (or one whose
-    in-cutoff images are the +-1-cell lattice shifts); the triclinic
-    correction sweep is not ported yet and raises. Returns (mask, overflow
-    flag); the mask is undefined when the flag is set. ``plain`` runs the
-    kernel's plain twin in its place.
+    in-cutoff images are the +-1-cell lattice shifts) and runs the
+    ghost-slab search (``plain`` runs the kernel's plain twin in its place).
+    For a skewed box pass its ``(K, 3)`` correction candidates (on the
+    device) and grid ``dims`` from :func:`grid_dims_for`; ``max_tgt_cells``
+    then selects the sparse-target variant with that many occupied-cell
+    slots (overflow beyond them raises the flag). Returns (mask, overflow
+    flag); the mask is undefined when the flag is set.
     """
-    if corrections is not None:
-        raise NotImplementedError("triclinic within_mask (corrections) is not ported yet")
     tgt_cap = tgt_cap or cap
     n_src = coords.shape[0] if src_idx is None else src_idx.shape[0]
-    src, ghost, s_slot, s_order, ofl = _ghost_inputs(
-        *_search_args(coords, src_idx, tgt_idx, box, inv, dims), box, dims, cap, tgt_cap, pbc
-    )
+    args = _search_args(coords, src_idx, tgt_idx, box, inv, dims)
+    if corrections is not None:
+        hit, s_slot, s_order, ofl = _within_corrections(
+            *args, box, inv, corrections, dims, cap, tgt_cap, pbc, _cutoff2(cutoff),
+            max_tgt_cells)
+        return _unsort_mask(hit, s_slot, s_order, n_src), ofl
+    src, ghost, s_slot, s_order, ofl = _ghost_inputs(*args, box, dims, cap, tgt_cap, pbc)
     stencil = _ghost_stencil if plain else within_ghost
     hit = stencil(src, ghost, dims, cap, tgt_cap, _cutoff2(cutoff))
     return _unsort_mask(hit, s_slot, s_order, n_src), ofl

@@ -45,15 +45,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name, t, device, shape):
+def _check(kernel, name, t, device, shape):
+    """Raise unless plane ``name`` of ``kernel``'s inputs is a contiguous
+    float32 tensor of ``shape`` on ``device``."""
     if t.device != device:
-        raise ValueError(f"within_ghost: {name} is on {t.device}, expected {device}")
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
     if t.dtype != torch.float32:
-        raise TypeError(f"within_ghost: {name} must be float32, got {t.dtype}")
+        raise TypeError(f"{kernel}: {name} must be float32, got {t.dtype}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"within_ghost: {name} has shape {tuple(t.shape)}, expected {shape}")
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
-        raise ValueError(f"within_ghost: {name} must be contiguous")
+        raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def _ghost_stencil(src, ghost, dims, cap: int, tgt_cap: int, c2: float):
@@ -98,9 +100,9 @@ def within_ghost(src, ghost, dims, cap: int, tgt_cap: int, c2: float):
     if device.type != "cuda":
         raise ValueError(f"within_ghost: the kernel takes CUDA tensors, got {device}")
     for name, t in zip(("sx", "sy", "sz"), src):
-        _check(name, t, device, (nx * ny * nz, cap))
+        _check("within_ghost", name, t, device, (nx * ny * nz, cap))
     for name, t in zip(("gx", "gy", "gz"), ghost):
-        _check(name, t, device, (nx + 2, ny + 2, nz + 2, tgt_cap))
+        _check("within_ghost", name, t, device, (nx + 2, ny + 2, nz + 2, tgt_cap))
     lib = _lib()
     hit = torch.empty((nx * ny * nz, cap), dtype=torch.bool, device=device)
     with torch.cuda.device(device):

@@ -1,8 +1,10 @@
 """The port stands without JAX: the machine with the card has no JAX, and any
 ``molar_tpu`` import reaches the JAX package's import-time pytree
 registration. A subprocess with both blocked imports every module of the
-port and runs the headline slice at a tiny size on the CPU; a static scan
-finds no JAX or ``molar_tpu`` import in the port or in ``chip_smoke.py``.
+port and runs the headline slice at a tiny size on the CPU, through the
+ghost and row routes and, on a rhombic dodecahedron, the correction path;
+a static scan finds no JAX or ``molar_tpu`` import in the port or in
+``chip_smoke.py``.
 """
 
 import pathlib
@@ -26,20 +28,20 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
         importlib.import_module(m.name)
     from molar_tpu_torch import headline
     from molar_tpu_torch.core.pbc import PeriodicBox
-    from molar_tpu_torch.ops.neighbor import grid_dims
+    from molar_tpu_torch.io.xtc import XtcHandler
+    from molar_tpu_torch.ops.neighbor import grid_dims_for
 
     n, npro, side, cutoff = 2000, 200, 2.714, 0.5
-    coords0, masses = headline.make_system(n, npro, side)
+    coords0, masses = headline.make_system(n, npro, np.diag([side] * 3))
     box = PeriodicBox(np.diag([side] * 3))
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "t.xtc")
         headline.write_trajectory(path, coords0, box.matrix, 6)
-        dims = grid_dims(box.box_extents(), cutoff)
+        dims = grid_dims_for(box, cutoff)
         pidx = np.arange(npro)
         caps0 = headline.base_caps(path, box.inv, dims, pidx)
         ids, rmsd, count, check, _ = headline.run(
             path, coords0[pidx], masses[pidx], pidx, box, cutoff, dims, caps0, 4, "cpu")
-        from molar_tpu_torch.io.xtc import XtcHandler
         with XtcHandler(path) as h:
             last = h.read_frame(5).coords.astype(np.float64)
     d = last[:, None, :] - last[None, pidx, :]
@@ -48,6 +50,37 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
     assert ids.tolist() == list(range(6)), ids
     assert count[5] == len(hits) and check[5] == int((hits + 1).sum()) % 2**32
     assert np.isfinite(rmsd).all() and (rmsd > 0).all()
+
+    # The same trajectory through the row stencil's plain twin.
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "t.xtc")
+        headline.write_trajectory(path, coords0, box.matrix, 6)
+        rows = headline.run(path, coords0[pidx], masses[pidx], pidx, box, cutoff, dims, caps0,
+                            4, "cpu", search="rows")
+    assert all((a == b).all() for a, b in zip(rows[:4], (ids, rmsd, count, check)))
+
+    # A rhombic dodecahedron (d = 3 nm) through the correction path.
+    dd = 3.0
+    m = np.array([[dd, 0, dd / 2], [0, dd, dd / 2], [0, 0, dd * 2**0.5 / 2]], np.float32)
+    tbox = PeriodicBox(m)
+    tdims = grid_dims_for(tbox, cutoff)
+    assert tdims == (4, 4, 4)
+    tc0, tm = headline.make_system(1909, 100, m)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "t.xtc")
+        headline.write_trajectory(path, tc0, m, 3)
+        tcaps = headline.base_caps(path, tbox.inv, tdims, pidx[:100])
+        _, _, tcount, _, _ = headline.run(path, tc0[:100], tm[:100], pidx[:100], tbox, cutoff,
+                                          tdims, tcaps, 4, "cpu")
+        with XtcHandler(path) as h:
+            last = h.read_frame(2).coords.astype(np.float64)
+    inv = np.linalg.inv(m.astype(np.float64))
+    f = (last[:, None, :] - last[None, :100, :]) @ inv.T
+    dl = (f - np.round(f)) @ m.T.astype(np.float64)
+    shifts = np.array([(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)],
+                      np.float64) @ m.T.astype(np.float64)
+    best = np.min([((dl + s) ** 2).sum(-1) for s in shifts], axis=0)
+    assert tcount[2] == int((best <= cutoff**2).any(1).sum()), tcount
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "molar_tpu")
               and sys.modules[m] is not None]
     assert not leaked, leaked
@@ -81,8 +114,12 @@ def test_no_jax_or_reference_imports_in_the_port():
 def test_kernel_source_is_cuda_for_hopper():
     from molar_tpu_torch import build
 
-    src = (PORT / "csrc" / "within_ghost.cu").read_text()
-    assert "__global__" in src and 'extern "C"' in src
-    assert "neighbor_pallas.py:_ghost_kernel" in src
+    for name, replaces in (("within_ghost.cu", "neighbor_pallas.py:_ghost_kernel"),
+                           ("within_rows.cu", "neighbor_pallas.py:_kernel")):
+        src = (PORT / "csrc" / name).read_text()
+        assert "__global__" in src and 'extern "C"' in src
+        assert replaces in src
+        assert PORT / "csrc" / name in build.KERNEL_SOURCES
+    assert sorted((PORT / "csrc").glob("*.cu")) == sorted(build.KERNEL_SOURCES)
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.BUILD_DIR == REPO / "build" / "molar_tpu_torch"

@@ -22,7 +22,7 @@ from molar_tpu.ops import neighbor as jnb
 from molar_tpu.ops import neighbor_host
 from molar_tpu.ops.neighbor_pallas import within_ghost_pallas
 
-from molar_tpu_torch.ops import neighbor
+from molar_tpu_torch.ops import neighbor, neighbor_ghost
 
 from torch_scenes import SCENES, TIE_MEMBERS, scene
 
@@ -162,10 +162,21 @@ def test_rank_and_planes_match_jax_bitwise():
 
 
 def test_triclinic_is_not_ported():
-    coords = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError):
-        neighbor.within_mask(coords, None, torch.arange(2), 0.5, torch.eye(3), torch.eye(3),
-                             corrections=torch.zeros(26, 3), dims=(2, 2, 2), cap=4)
+    """A skewed box with its corrections takes the correction path, not
+    the ghost kernel, and gives the host search's set."""
+    from molar_tpu_torch.core.pbc import PeriodicBox as TorchBox
+
+    jbox = PeriodicBox.from_vectors_angles(3.0, 3.2, 3.4, 75.0, 80.0, 70.0)
+    box = TorchBox(jbox.matrix)
+    coords = np.random.default_rng(6).uniform(0, 3, (200, 3)).astype(np.float32)
+    tgt = np.arange(0, 200, 9)
+    before = neighbor_ghost.within_ghost.launches
+    mask, ofl = neighbor.within_mask(
+        _t(coords), None, _t(tgt), 0.5, _t(box.matrix), _t(box.inv),
+        corrections=_t(box.padded_corrections()), dims=neighbor.grid_dims_for(box, 0.5), cap=32)
+    assert not bool(ofl) and neighbor_ghost.within_ghost.launches == before
+    want = neighbor_host.search_within(0.5, coords, np.arange(200), tgt, jbox, PbcDims())
+    np.testing.assert_array_equal(np.flatnonzero(mask.numpy()), want)
 
 
 def test_mat3_apply_matches_jax():

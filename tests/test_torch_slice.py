@@ -27,7 +27,7 @@ from molar_tpu.tasks import trajectory as jtraj
 
 from molar_tpu_torch import convert, headline
 from molar_tpu_torch.core.pbc import PeriodicBox
-from molar_tpu_torch.ops.neighbor import grid_dims
+from molar_tpu_torch.ops.neighbor import grid_dims_for
 from molar_tpu_torch.tasks.trajectory import TrajectoryReader
 
 N_ATOMS, N_PROTEIN, N_FRAMES, WINDOW, CUTOFF = 5000, 500, 16, 8, 0.5
@@ -36,12 +36,12 @@ SIDE = 10.0 * (N_ATOMS / 100_000) ** (1 / 3)  # the headline's 100 atoms/nm^3
 
 @pytest.fixture(scope="module")
 def system(tmp_path_factory):
-    coords0, masses = headline.make_system(N_ATOMS, N_PROTEIN, SIDE)
+    coords0, masses = headline.make_system(N_ATOMS, N_PROTEIN, np.diag([SIDE] * 3))
     box = PeriodicBox(np.diag([SIDE] * 3))
     path = str(tmp_path_factory.mktemp("slice") / "traj.xtc")
     headline.write_trajectory(path, coords0, box.matrix, N_FRAMES)
     pidx = np.arange(N_PROTEIN)
-    dims = grid_dims(box.box_extents(), CUTOFF)
+    dims = grid_dims_for(box, CUTOFF)
     caps0 = headline.base_caps(path, box.inv, dims, pidx)
     with JaxXtc(path) as h:
         first = h.read_frame(0).coords
@@ -51,10 +51,10 @@ def system(tmp_path_factory):
 
 def _jax_headline(s):
     """``bench.py``'s window function and retry loop, on JAX-CPU."""
-    cap0, tcap0 = s["caps0"]
-    _, _, need_cells0 = jnb.estimate_caps(
+    cap0, tcap0, need_cells0 = jnb.estimate_caps(
         s["first"], s["box"].inv, s["dims"], s["pidx"],
         margin=1.0, round_to=1)
+    assert (cap0, tcap0, need_cells0) == s["caps0"]
     pidx_j = jnp.asarray(s["pidx"])
     aidx_j = jnp.arange(N_ATOMS)
     ref_j = jnp.asarray(s["coords0"][s["pidx"]])
@@ -132,8 +132,8 @@ def test_headline_matches_host_search(system):
 
 
 def test_overflow_retry_reaches_the_same_result(system, jax_result):
-    cap0, tcap0 = system["caps0"]
-    small = (cap0 // 3, tcap0 // 3)
+    cap0, tcap0, cells0 = system["caps0"]
+    small = (cap0 // 3, tcap0 // 3, cells0)
     assert headline.caps_for(*small, 0)[0] < cap0  # tier 0 must overflow
     ids, rmsd, count, check, retried = _port_run(system, caps0=small)
     assert retried == N_FRAMES // WINDOW
@@ -158,21 +158,35 @@ def test_window_transports_give_identical_results(system):
 
 
 def test_caps_for_follows_bench_tiers():
-    for cap0, tcap0 in ((39, 24), (53, 7), (1, 1)):
+    for cap0, tcap0, cells0 in ((39, 24, 350), (53, 7, 1), (1, 1, 900)):
         for tier in range(4):
             g = 1.5**tier
-            want = ((int(cap0 * 1.2 * g) + 2 + 7) // 8 * 8, (int(tcap0 * 1.2 * g) + 2 + 7) // 8 * 8)
-            assert headline.caps_for(cap0, tcap0, tier) == want
+            want = ((int(cap0 * 1.2 * g) + 2 + 7) // 8 * 8, (int(tcap0 * 1.2 * g) + 2 + 7) // 8 * 8,
+                    max(512, (int(cells0 * 1.25 * g) + 255) // 256 * 256))
+            assert headline.caps_for(cap0, tcap0, cells0, tier) == want
 
 
 def test_from_numpy_builds_buffers_and_rejects_triclinic(system):
+    """The buffers and the route: a skewed box is never handed to either
+    orthorhombic kernel (it takes the correction path), and an unknown
+    search is rejected."""
     s = system
     args = (s["coords0"][s["pidx"]], s["masses"][s["pidx"]], s["pidx"])
-    model = convert.from_numpy(*args, s["box"].matrix, CUTOFF, (48, 32), s["dims"], "cpu")
+    model = convert.from_numpy(*args, s["box"].matrix, CUTOFF, (48, 32, 512), s["dims"], "cpu")
     assert {n for n, _ in model.named_buffers()} == {"ref", "masses", "protein_idx"}
     assert model.ref.dtype == torch.float32 and model.protein_idx.dtype == torch.int64
     assert (model.cap, model.tgt_cap, model.dims) == (48, 32, s["dims"])
+    assert model.search == "ghost"
+    rows = convert.from_numpy(*args, s["box"].matrix, CUTOFF, (48, 32, 512), s["dims"], "cpu",
+                              search="rows")
+    assert rows.search == "rows"
     skew = s["box"].matrix.copy()
     skew[0, 1] = 0.3
-    with pytest.raises(NotImplementedError):
-        convert.from_numpy(*args, skew, CUTOFF, (48, 32), s["dims"], "cpu")
+    for search in ("ghost", "rows"):
+        tric = convert.from_numpy(*args, skew, CUTOFF, (48, 32, 768), s["dims"], "cpu",
+                                  search=search)
+        assert (tric.search, tric.max_tgt_cells) == ("corrections", 768)
+        assert {n for n, _ in tric.named_buffers()} == {"ref", "masses", "protein_idx", "ijk"}
+    with pytest.raises(ValueError):
+        convert.from_numpy(*args, s["box"].matrix, CUTOFF, (48, 32, 512), s["dims"], "cpu",
+                           search="corrections")

@@ -4,8 +4,12 @@ Random scenes, exact cutoff ties (values exact in float32: an inclusive
 cutoff keeps the tie, one ulp-scale step beyond it drops it), tiny and
 collapsed periodic grids where several images of one cell are in range,
 partial PBC, and a small solvated protein at the headline's density. They
-rebuild the knife-edge cases of the JAX package's neighbour tests. Imports
-neither JAX nor pytest, so the smoke can use them on the card.
+rebuild the knife-edge cases of the JAX package's neighbour tests. The row
+scenes (:data:`ROW_SCENES`) are the orthorhombic full-PBC ones plus those of
+the row kernel's own tests, one with a 2-cell axis. The dodecahedron scenes
+fill rhombic dodecahedra at 100 atoms/nm^3, and :func:`brute_within` is
+their float64 ground truth over the lattice images. Imports neither JAX nor
+pytest, so the smoke can use them on the card.
 """
 
 import numpy as np
@@ -55,11 +59,21 @@ def scene(name):
         coords = rng.uniform(-1.7, 3.4, (400, 3)).astype(np.float32)
         tgt = np.sort(rng.choice(400, 80, replace=False))
         return coords, None, tgt, 0.4, (1.7, 1.87, 2.04), full, 400
+    if name.startswith("pallas"):
+        seed, cutoff = {"pallas11_0.5": (11, 0.5), "pallas3_0.8": (3, 0.8)}[name]
+        rng = np.random.default_rng(seed)
+        coords = rng.uniform(-2, 8, (700, 3)).astype(np.float32)
+        tgt = np.sort(rng.choice(700, 90, replace=False))
+        return coords, None, tgt, cutoff, (4.0, 5.0, 6.0), full, 48
+    if name == "small_grid_2x4x4":
+        rng = np.random.default_rng(5)
+        coords = rng.uniform(0, 4, (200, 3)).astype(np.float32)
+        return coords, None, np.arange(0, 200, 5), 0.9, (2.0, 4.0, 4.0), full, 128
     if name == "solvated_protein":
         from molar_tpu_torch.headline import make_system
 
         side = 10.0 * (5000 / 100_000) ** (1 / 3)
-        coords, _ = make_system(5000, 500, side)
+        coords, _ = make_system(5000, 500, np.diag([side] * 3))
         return coords, None, np.arange(500), 0.5, (side,) * 3, full, 64
     raise KeyError(name)
 
@@ -72,3 +86,53 @@ SCENES = ["random7", "random19", "tie_at_cutoff", "tie_across_boundary",
 
 #: Source indices the inclusive cutoff must keep in the tie scenes.
 TIE_MEMBERS = {"tie_at_cutoff": [1, 3], "tie_across_boundary": [1]}
+
+#: Scenes of the row-tiled min-image search (orthorhombic, full PBC).
+ROW_SCENES = [n for n in SCENES if n != "partial_pbc_TFT"] + [
+    "pallas11_0.5", "pallas3_0.8", "small_grid_2x4x4"]
+
+
+def dodecahedron(d: float) -> np.ndarray:
+    """Rhombic dodecahedron box matrix of image distance ``d`` (columns
+    a = (d, 0, 0), b = (0, d, 0), c = (d/2, d/2, d*sqrt(2)/2)): the shape
+    ``gmx editconf -bt dodecahedron`` gives, volume d^3 * sqrt(2)/2."""
+    return np.array([[d, 0.0, d / 2], [0.0, d, d / 2], [0.0, 0.0, d * np.sqrt(2) / 2]],
+                    dtype=np.float32)
+
+
+def dodeca_scene(d: float, seed: int = 0, density: float = 100.0, tgt_every: int = 50):
+    """Uniform atoms at ``density`` per nm^3 in the dodecahedron of image
+    distance ``d`` (fractional coordinates uniform in [0, 1)), targets a
+    random subset of one atom in ``tgt_every`` -> (coords f32, targets,
+    box matrix)."""
+    m = dodecahedron(d)
+    n = int(round(density * abs(np.linalg.det(m.astype(np.float64)))))
+    rng = np.random.default_rng(seed)
+    coords = (rng.uniform(0, 1, (n, 3)) @ m.T.astype(np.float64)).astype(np.float32)
+    tgt = np.sort(rng.choice(n, max(n // tgt_every, 1), replace=False))
+    return coords, tgt, m
+
+
+def brute_within(coords, src, tgt, matrix, cutoff: float, chunk: int = 64):
+    """Float64 ground truth: for every source, the least distance to any
+    target over the lattice images. The displacement is reduced to
+    fractional [-0.5, 0.5] and then the 27 images i*a + j*b + k*c,
+    (i, j, k) in {-1, 0, 1}^3, around it are all measured. Returns (mask
+    ``dmin <= cutoff``, dmin)."""
+    m = np.asarray(matrix, np.float64)
+    inv = np.linalg.inv(m)
+    c = np.asarray(coords, np.float64)
+    s_pts, t_pts = c[np.asarray(src)], c[np.asarray(tgt)]
+    shifts = np.array([(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
+                       for k in (-1, 0, 1)], np.float64) @ m.T
+    dmin = np.empty(len(s_pts))
+    for lo in range(0, len(s_pts), chunk):
+        d = t_pts[None, :, :] - s_pts[lo: lo + chunk, None, :]
+        f = d @ inv.T
+        d = (f - np.round(f)) @ m.T
+        best = np.full(d.shape[:2], np.inf)
+        for sh in shifts:
+            e = d + sh
+            np.minimum(best, np.einsum("ijk,ijk->ij", e, e), out=best)
+        dmin[lo: lo + chunk] = np.sqrt(best.min(axis=1))
+    return dmin <= cutoff, dmin
