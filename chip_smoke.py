@@ -5,35 +5,44 @@ Drives the trajectory headline through the port's own entry points: a
 100k-atom XTC streamed in i8 delta windows, each frame fitted (mass-weighted
 Kabsch RMSD of a 5k-atom "protein") and searched (0.5 nm periodic ``within``
 of every atom against the protein), through each of the port's three search
-routes: the hand-written ghost-slab CUDA kernel and the hand-written
-row-tiled per-pair min-image CUDA kernel on the headline's cubic box, and
-the triclinic correction path (plain torch) on a rhombic dodecahedron of
-the same density. Weights do not exist here; the systems and their
-trajectories are made from seeds. Phases, one line each on stdout:
+routes: the hand-written ghost-slab CUDA kernels (a counting-sort binning of
+the window into cells, then a 27-cell stencil, two launches a window) and
+the hand-written row-tiled per-pair min-image CUDA kernel on the
+headline's cubic box, and the triclinic correction path (plain torch) on a
+rhombic dodecahedron of the same density. Weights do not exist here; the
+systems and their trajectories are made from seeds. Phases, one line each
+on stdout:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the CUDA kernel, the XTC codec and the native C++ reference, from
-   the sources in this checkout;
-3. kernel vs plain: the kernel's mask against its plain PyTorch twin on the
-   same CUDA tensors (exact equality), on the scenes of
-   ``tests/torch_scenes.py`` (random, cutoff ties, tiny and collapsed
-   periodic grids, partial PBC), an overflow scene and the headline shape,
-   with both times at the headline shape;
+2. build: the CUDA kernels, the XTC codec and the native C++ reference,
+   from the sources in this checkout;
+3. ghost kernels vs plain: masks and overflow flags against the plain twin
+   on the same CUDA tensors (exact equality) on the scenes of
+   ``tests/torch_scenes.py`` (random, cutoff ties and their members, tiny
+   and collapsed periodic grids, partial PBC, a crowded scene that needs
+   chunked staging) and an overflow scene; then a full 16-frame headline
+   window: the masks against the twin, the binning kernel's per-cell counts
+   against ``torch.bincount`` and its per-cell members (positions and
+   coordinates) against the plain plane build, the stencil kernel against
+   its twin on the same cell records; each kernel's time, its twin's and its
+   bound (bytes or operations, from this window's data);
 4. main path: write the trajectory, stream it with overflow retry, count
    kernel launches, check frame 0 against the native C++ program and frames
    0 / mid / last against the plain path run on the CPU, and report fps,
    the host decode / H2D / device split and the device's busy share;
-5. stages: one resident window, stage by stage, host enqueue and device
-   time of each stage and the number of device operations;
+5. stages: one resident window, stage by stage (decode, fit_rmsd, search,
+   checksum), host enqueue and device time of each stage and the number of
+   device operations;
 6. rows kernel vs plain: the row kernel's mask and overflow flag against
    its plain twin on the same CUDA tensors (exact equality) on the
    orthorhombic full-PBC scenes (a 2-cell axis among them), an overflow
-   scene and the headline shape, with both times at the headline shape;
+   scene and the headline shape, with both times and the bound at the
+   headline shape;
 7. rows path: the main path's trajectory through ``search="rows"``:
    every frame's count and checksum equal the ghost path's, frames 0 / mid
    / last the CPU run of the row twin, frame 0 the native C++ program, no
-   host sync inside a window (as in 8); fps, the device's busy share and
-   the row kernel's launches;
+   host sync inside a window of either route (as in 8); fps, the device's
+   busy share and the row kernel's launches;
 8. dodecahedron path: 100k atoms (a 5k-atom protein ball) in a rhombic
    dodecahedron at 100 atoms/nm^3, 64 frames through the sparse-target
    correction path with overflow retry: frames 0 / mid / last against the
@@ -44,13 +53,14 @@ trajectories are made from seeds. Phases, one line each on stdout:
    fps and the device's busy share.
 
 Each path resets every kernel's launch count just before it and reads the
-counts just after: the ghost path must launch only the ghost kernel, the
-rows path only the row kernel, and the dodecahedron path neither.
+counts just after: the ghost path must launch only the two ghost kernels,
+the rows path only the row kernel, and the dodecahedron path none.
 
 Any failure raises, and then the script exits non-zero without its last
 line. The last line is ``{"ok": true, "device": {...}}``; the line before it
-is the per-kernel JSON record. The script needs a CUDA device and imports no
-JAX.
+is the per-kernel JSON record (launches on the main path, time, the plain
+twin's time and the bound, each per launch). The script needs a CUDA
+device and imports no JAX.
 
 The system is ``bench.py``'s headline at its defaults and is not an option
 here: only the headline's frame count and number of timed passes are.
@@ -75,9 +85,16 @@ import numpy as np
 HERE = pathlib.Path(__file__).resolve().parent
 # name -> (source, the TPU kernel it replaces as file:line).
 KERNELS = {
+    "cell_bins": ("molar_tpu_torch/csrc/cell_bin.cu", "molar_tpu/ops/neighbor_pallas.py:257"),
     "within_ghost": ("molar_tpu_torch/csrc/within_ghost.cu", "molar_tpu/ops/neighbor_pallas.py:200"),
     "within_rows": ("molar_tpu_torch/csrc/within_rows.cu", "molar_tpu/ops/neighbor_pallas.py:43"),
 }
+# Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): device
+# memory bytes/s, and float32 FLOP/s outside the tensor cores (the kernels'
+# arithmetic type). A kernel's bound is the larger of its bytes (each input
+# read once, each output written once) and its operations over these.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 # bench.py's headline settings: --atoms, --protein, --box (nm), --cutoff (nm),
 # and the window its auto-sizing picks at 100k atoms.
@@ -94,8 +111,7 @@ DODECA_DIMS = (18, 18, 15)
 DODECA_FRAMES = 64
 DODECA_REPEATS = 3
 BRUTE_SAMPLE = 5000
-STAGES = ("decode", "fit_rmsd", "search_args", "ghost_inputs", "stencil", "unsort_mask",
-          "checksum")
+STAGES = ("decode", "fit_rmsd", "search", "checksum")
 
 
 def phase(label: str, **fields) -> None:
@@ -199,21 +215,16 @@ def _device_profile(fn):
     return wall * 1e3, busy / 1e3, [(k, round(v / 1e3, 3)) for k, v in ops[:4]]
 
 
-def _kernel_vs_plain(device, label, scenes, search, planes, kernel, twin):
-    """One kernel against its plain twin on the same CUDA tensors: exact mask
-    and overflow-flag equality on ``scenes`` plus one whose caps are too
-    small, the tie scenes' members, and the hit blocks at the headline shape;
-    then both times there, in turns plain / kernel / kernel / plain.
-
-    ``search(coords, src, tgt, cutoff, box, inv, dims, pbc, cap, tgt_cap,
-    plain)`` runs the whole search; ``planes(coords, tgt, box, inv, dims,
-    cap, tgt_cap)`` builds the headline shape's kernel inputs, which
-    ``kernel`` and ``twin`` take, followed by the squared cutoff."""
+def _scenes_vs_plain(device, label, scenes, search):
+    """A search on the card against its plain twin on the same CUDA tensors:
+    exact mask and overflow-flag equality on ``scenes`` plus one whose caps
+    are too small, and the tie scenes' members. ``search(coords, src, tgt,
+    cutoff, box, inv, dims, pbc, cap, tgt_cap, plain)`` runs one frame.
+    Returns the names checked."""
     import torch
 
-    from molar_tpu_torch import headline
     from molar_tpu_torch.core.pbc import PeriodicBox
-    from molar_tpu_torch.ops.neighbor import _cutoff2, estimate_caps, grid_dims_for
+    from molar_tpu_torch.ops.neighbor import grid_dims_for
 
     from torch_scenes import TIE_MEMBERS, scene
 
@@ -244,63 +255,165 @@ def _kernel_vs_plain(device, label, scenes, search, planes, kernel, twin):
             if got != TIE_MEMBERS[name]:
                 raise AssertionError(f"{tag}: members {got} != {TIE_MEMBERS[name]}")
         checked.append("overflow" if over_cap else name)
+    return checked
 
-    # The headline shape: frame-0 coordinates of the main path's system.
+
+def _bound(nbytes: int, flops: int) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the f32 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _near(tcount, dims, tcap: int):
+    """Targets (up to ``tcap`` a cell) in each cell's 27 neighbour cells
+    under full PBC, from per-cell counts (..., n_cells), aliased offsets of
+    1- and 2-cell axes counted as often as the kernels visit them."""
+    from molar_tpu_torch.ops.neighbor_ghost import _image_cells
+
+    cells, _, ok = _image_cells(dims, (True,) * 3, tcount.device)
+    return (tcount.clamp(max=tcap)[..., cells] * ok).sum(dim=-2)
+
+
+def _pairs(scount, tcount, dims, cap: int, tcap: int) -> int:
+    """Candidate pairs of a full-PBC 27-cell stencil: every source (up to
+    ``cap`` a cell) against the targets of its 27 neighbour cells."""
+    return int((scount.clamp(max=cap) * _near(tcount, dims, tcap)).sum())
+
+
+def _headline_frame0(device):
+    """The main path's frame-0 system at tier-0 caps -> (coords, protein
+    indices, box, inv (device tensors), dims, cap, tgt_cap)."""
+    import torch
+
+    from molar_tpu_torch import headline
+    from molar_tpu_torch.core.pbc import PeriodicBox
+    from molar_tpu_torch.ops.neighbor import estimate_caps, grid_dims_for
+
     box = PeriodicBox(np.diag([BOX] * 3))
     coords0, _ = headline.make_system(ATOMS, PROTEIN, box.matrix)
     dims = grid_dims_for(box, CUTOFF)
     pidx = np.arange(PROTEIN)
-    caps0 = estimate_caps(coords0, box.inv, dims, pidx, margin=1.0, round_to=1)
-    cap, tcap, _ = headline.caps_for(*caps0, 0)
-    c, tg, bm, bi = t(coords0), t(pidx), t(box.matrix), t(box.inv)
-    call = (c, None, tg, CUTOFF, bm, bi, dims, (True,) * 3, cap, tcap)
-    mk, ok_ = search(*call, False)
-    mp, op_ = search(*call, True)
-    if bool(ok_) or bool(op_) or not torch.equal(mk, mp):
-        raise AssertionError(f"{label} headline shape: kernel and plain disagree or overflow")
-    checked.append("headline")
-    inputs = (*planes(c, tg, bm, bi, dims, cap, tcap), _cutoff2(CUTOFF))
-    max_err = int((kernel(*inputs).int() - twin(*inputs).int()).abs().max())
-    if max_err:
-        raise AssertionError(f"{label} headline shape: stencil hit blocks differ")
-    times = {"plain": [], "kernel": [], "plain_call": [], "kernel_call": []}
-    for order in (("plain", "kernel"), ("kernel", "plain")):
-        for which in order:
-            if which == "kernel":
-                times["kernel"].append(_cuda_ms(lambda: kernel(*inputs), 50))
-                times["kernel_call"].append(_cuda_ms(lambda: search(*call, False), 20))
-            else:
-                times["plain"].append(_cuda_ms(lambda: twin(*inputs), 10))
-                times["plain_call"].append(_cuda_ms(lambda: search(*call, True), 10))
-    ms = {k: float(np.mean(v)) for k, v in times.items()}
-    phase(label, scenes=len(checked), all_equal=True,
-          headline_shape=f"n={ATOMS},tgt={PROTEIN},dims={dims},cap={cap},tgt_cap={tcap}",
-          stencil_kernel_ms=ms["kernel"], stencil_plain_ms=ms["plain"],
-          call_kernel_ms=ms["kernel_call"], call_plain_ms=ms["plain_call"],
-          stencil_kernel_ms_runs=repr([round(v, 5) for v in times["kernel"]]),
-          stencil_plain_ms_runs=repr([round(v, 4) for v in times["plain"]]),
-          names=",".join(checked))
-    return {"max_abs_err": max_err, "ms": ms["kernel"], "plain_ms": ms["plain"]}
+    cap, tcap, _ = headline.caps_for(
+        *estimate_caps(coords0, box.inv, dims, pidx, margin=1.0, round_to=1), 0)
+    c, tg, bm, bi = (torch.as_tensor(a, device=device) for a in (coords0, pidx, box.matrix,
+                                                                 box.inv))
+    return c, tg, bm, bi, dims, cap, tcap
 
 
 def phase_kernel_vs_plain(device):
-    """The ghost kernel against ``_ghost_stencil`` on every shared scene."""
-    from molar_tpu_torch.ops.neighbor import _ghost_inputs, _search_args, within_mask
-    from molar_tpu_torch.ops.neighbor_ghost import _ghost_stencil, within_ghost
+    """The two ghost kernels against their plain twins: every shared scene
+    through ``within_mask``, then a full 16-frame headline window (frame 0
+    of the main path's system plus a seeded 0.02 nm random walk, as
+    ``headline.write_trajectory`` makes it) through each kernel and the
+    whole window search. Returns the kernel records of both."""
+    import torch
 
-    from torch_scenes import SCENES
+    from molar_tpu_torch.ops import neighbor_ghost as ng
+    from molar_tpu_torch.ops.neighbor import (
+        _cutoff2, _search_args, within_mask, within_mask_window,
+    )
+
+    from torch_scenes import GHOST_SCENES, blocked_members, cell_members
 
     def search(c, s, tg, cut, bm, bi, dims, pbc, cap, tcap, plain):
         return within_mask(c, s, tg, cut, bm, bi, dims=dims, cap=cap, tgt_cap=tcap, pbc=pbc,
                            plain=plain)
 
-    def planes(c, tg, bm, bi, dims, cap, tcap):
-        src, ghost, *_ = _ghost_inputs(*_search_args(c, None, tg, bm, bi, dims), bm, dims, cap,
-                                       tcap, (True,) * 3)
-        return src, ghost, dims, cap, tcap
+    checked = _scenes_vs_plain(device, "kernel_vs_plain", GHOST_SCENES, search)
 
-    return _kernel_vs_plain(device, "kernel_vs_plain", SCENES, search, planes, within_ghost,
-                            _ghost_stencil)
+    c0, tgt, bm, bi, dims, cap, tcap = _headline_frame0(device)
+    steps = np.random.default_rng(1).normal(0, 0.02, (WINDOW, ATOMS, 3))
+    coords = (c0[None] + torch.as_tensor(np.cumsum(steps, axis=0), device=device)).float()
+    boxes, invs = bm.expand(WINDOW, 3, 3).contiguous(), bi.expand(WINDOW, 3, 3).contiguous()
+    nx, ny, nz = dims
+    n_cells = nx * ny * nz
+    full = (True,) * 3
+    window = (coords, None, tgt, CUTOFF, boxes, invs, dims, cap, tcap)
+    masks, ofl = within_mask_window(*window)
+    pmasks, pofl = within_mask_window(*window, plain=True)
+    if ofl.any() or pofl.any() or not torch.equal(masks, pmasks):
+        raise AssertionError("headline window: kernels and plain twin disagree or overflow")
+
+    bins_args = (coords, None, tgt, boxes, invs, dims, cap, tcap)
+    src_rec, tgt_rec, counts, bofl = ng.cell_bins(*bins_args)
+    bins_err, members = 0.0, 0
+    for f in range(WINDOW):
+        sa = _search_args(coords[f], None, tgt, boxes[f], invs[f], dims)
+        tflat = (sa[7] * ny + sa[8]) * nz + sa[9]
+        want = blocked_members(coords[f], None, tgt, boxes[f], invs[f], dims, cap, tcap)
+        for k, (flat, rec, (pos, xyz)) in enumerate(zip((sa[3], tflat), (src_rec[f], tgt_rec[f]),
+                                                        want)):
+            if not torch.equal(counts[f, k], torch.bincount(flat.long(), minlength=n_cells).int()):
+                raise AssertionError(f"headline window frame {f}: binning counts != bincount")
+            got_pos, got_xyz = cell_members(rec, counts[f, k], rec.shape[1])
+            if not torch.equal(got_pos, pos):
+                raise AssertionError(f"headline window frame {f}: cell members differ")
+            bins_err = max(bins_err, float((got_xyz - xyz).abs().max()))
+            members += int((pos >= 0).sum())
+    if bofl.any() or bins_err:
+        raise AssertionError(f"headline window: binning overflow {bofl.tolist()} or records "
+                             f"off by {bins_err}")
+
+    c2 = _cutoff2(CUTOFF)
+    stencil_args = (src_rec, tgt_rec, counts, boxes, dims, cap, tcap, full, c2, ATOMS)
+    kmask = ng.within_ghost(*stencil_args)
+    stencil_err = int((kmask.int() - ng._bins_stencil(*stencil_args).int()).abs().max())
+    if stencil_err or not torch.equal(kmask, masks):
+        raise AssertionError("headline window: stencil kernel != its twin on the same records")
+    checked.append("headline_window")
+
+    runs = {k: [] for k in ("bins", "bins_plain", "stencil", "stencil_plain", "call",
+                            "call_plain")}
+    for order in ((False, True), (True, False)):
+        for kernel in order:
+            if kernel:
+                runs["bins"].append(_cuda_ms(lambda: ng.cell_bins(*bins_args), 50))
+                runs["stencil"].append(_cuda_ms(lambda: ng.within_ghost(*stencil_args), 50))
+                runs["call"].append(_cuda_ms(lambda: within_mask_window(*window), 50))
+            else:
+                runs["bins_plain"].append(_cuda_ms(lambda: ng._cell_bins_plain(*bins_args), 2))
+                runs["stencil_plain"].append(
+                    _cuda_ms(lambda: ng._bins_stencil(*stencil_args), 2))
+                runs["call_plain"].append(
+                    _cuda_ms(lambda: within_mask_window(*window, plain=True), 2))
+    ms = {k: float(np.mean(v)) for k, v in runs.items()}
+
+    # Bytes each function must move: its inputs read once, its outputs
+    # written once. The binning writes every point's record. The stencil
+    # needs every count, the target records, and the source records of the
+    # live cells only (a target in their 27-cell neighbourhood): the other
+    # sources keep the mask's zero.
+    n_pts = WINDOW * (ATOMS + PROTEIN)
+    scount, tcount = counts[:, 0].clamp(max=cap), counts[:, 1].clamp(max=tcap)
+    live_src = int((scount * (_near(tcount, dims, tcap) > 0)).sum())
+    pairs = _pairs(scount, tcount, dims, cap, tcap)
+    coord_bytes = coords.numel() * 4 + tgt.numel() * 8 + 2 * boxes.numel() * 4
+    bins_bound = _bound(coord_bytes + n_pts * 16 + counts.numel() * 4 + WINDOW, n_pts * 40)
+    stencil_bytes = ((live_src + int(tcount.sum())) * 16 + counts.numel() * 4
+                     + boxes.numel() * 4 + WINDOW * ATOMS)
+    stencil_bound = _bound(stencil_bytes, pairs * 9)
+    whole_bound = _bound(coord_bytes + WINDOW * ATOMS + WINDOW, pairs * 9)
+    phase("kernel_vs_plain", scenes=len(checked), all_equal=True, names=",".join(checked),
+          window=f"frames={WINDOW},n={ATOMS},tgt={PROTEIN},dims={dims},cap={cap},tgt_cap={tcap}",
+          members_checked=members, candidate_pairs=pairs, live_sources=live_src,
+          stencil_bytes=stencil_bytes,
+          bins_ms=ms["bins"], bins_plain_ms=ms["bins_plain"], **{
+              f"bins_{k}": v for k, v in bins_bound.items()},
+          stencil_ms=ms["stencil"], stencil_plain_ms=ms["stencil_plain"], **{
+              f"stencil_{k}": v for k, v in stencil_bound.items()},
+          call_ms=ms["call"], call_plain_ms=ms["call_plain"], **{
+              f"call_{k}": v for k, v in whole_bound.items()},
+          call_ms_per_frame=ms["call"] / WINDOW,
+          runs_ms=repr({k: [round(x, 5) for x in v] for k, v in runs.items()}))
+    per_launch = {"frames_per_launch": WINDOW, "library_ms": None}
+    return {
+        "cell_bins": {"max_abs_err": bins_err, "ms": ms["bins"], "plain_ms": ms["bins_plain"],
+                      **bins_bound, **per_launch},
+        "within_ghost": {"max_abs_err": stencil_err, "ms": ms["stencil"],
+                         "plain_ms": ms["stencil_plain"], **stencil_bound, **per_launch},
+    }
 
 
 # ---------------------------------------------------------------- phase 4
@@ -380,14 +493,14 @@ def phase_main_path(device, args, native_exe, workdir):
     _reset_launches()
     (ids, rmsd, count, check, retried), passes = _timed_passes(args.repeats, lambda: headline.run(
         path, ref, pmass, pidx, box, CUTOFF, dims, caps0, WINDOW, device))
-    launches, rows_launches = _launches()
-    if rows_launches:
+    launches = _launches()
+    if launches.pop("within_rows"):
         raise AssertionError("the ghost path launched the row kernel")
     if len(ids) != args.frames or not np.array_equal(ids, np.arange(args.frames)):
         raise AssertionError(f"stream returned frames {ids[:4]}... ({len(ids)})")
-    if launches < args.repeats * args.frames:
-        raise AssertionError(f"kernel launched {launches} times for "
-                             f"{args.repeats} x {args.frames} frames")
+    windows = args.repeats * -(-args.frames // WINDOW)
+    if min(launches.values()) < windows:
+        raise AssertionError(f"ghost kernels launched {launches} times for {windows} windows")
     if not (np.isfinite(rmsd).all() and (count > 0).all()):
         raise AssertionError("non-finite RMSD or empty within set")
 
@@ -448,8 +561,7 @@ def phase_stages(model, window):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from molar_tpu_torch.ops.measure import fit_rmsd
-    from molar_tpu_torch.ops.neighbor import _cutoff2, _ghost_inputs, _search_args, _unsort_mask
-    from molar_tpu_torch.ops.neighbor_ghost import within_ghost
+    from molar_tpu_torch.ops.neighbor import within_mask_window
     from molar_tpu_torch.tasks.trajectory import decode_window_coords
 
     m = model
@@ -466,16 +578,10 @@ def phase_stages(model, window):
         transport, boxes, invs = window
         coords = stage("decode", decode_window_coords, transport)
         stage("fit_rmsd", fit_rmsd, coords[:, m.protein_idx], m.ref, m.masses)
+        masks, _ = stage("search", within_mask_window, coords, None, m.protein_idx, m.cutoff,
+                         boxes, invs, m.dims, m.cap, m.tgt_cap)
         ids1 = torch.arange(1, coords.shape[1] + 1, device=coords.device)
-        for b in range(coords.shape[0]):
-            sa = stage("search_args", _search_args, coords[b], None, m.protein_idx,
-                       boxes[b], invs[b], m.dims)
-            src, ghost, slot, order, _ = stage("ghost_inputs", _ghost_inputs, *sa, boxes[b],
-                                               m.dims, m.cap, m.tgt_cap, (True, True, True))
-            hit = stage("stencil", within_ghost, src, ghost, m.dims, m.cap, m.tgt_cap,
-                        _cutoff2(m.cutoff))
-            mask = stage("unsort_mask", _unsort_mask, hit, slot, order, coords.shape[1])
-            stage("checksum", lambda: (mask.sum(), (ids1 * mask).sum() & 0xFFFFFFFF))
+        stage("checksum", lambda: (masks.sum(dim=1), (ids1 * masks).sum(dim=1) & 0xFFFFFFFF))
 
     window_pass(False)
     torch.cuda.synchronize()
@@ -500,7 +606,7 @@ def phase_stages(model, window):
     for tr in ops:
         name = next((n for n, lo, hi in ranges if lo <= tr.start and tr.end <= hi), "outside")
         device_ms[name] += (tr.end - tr.start) / 1e3
-    if not ops or device_ms["stencil"] <= 0:
+    if not ops or device_ms["search"] <= 0:
         raise AssertionError("the profiler saw no device work in the window's stages")
     frames = window[1].shape[0]
     phase("stages", frames=frames, wall_ms=wall, host_enqueue_ms=sum(host_ms.values()),
@@ -515,7 +621,12 @@ def phase_stages(model, window):
 
 def phase_rows_vs_plain(device):
     """The row kernel against ``_rows_stencil`` on the orthorhombic
-    full-PBC scenes (a 2-cell axis among them)."""
+    full-PBC scenes (a 2-cell axis among them), then at the headline shape
+    (the main path's frame 0): the hit blocks, both times in turns plain /
+    kernel / kernel / plain, and the bound."""
+    import torch
+
+    from molar_tpu_torch.ops.neighbor import _cutoff2, _search_args
     from molar_tpu_torch.ops.neighbor_rows import (
         _rows_inputs, _rows_stencil, within_mask_rows, within_rows,
     )
@@ -525,12 +636,56 @@ def phase_rows_vs_plain(device):
     def search(c, s, tg, cut, bm, bi, dims, pbc, cap, tcap, plain):
         return within_mask_rows(c, s, tg, cut, bm, bi, dims, cap=cap, tgt_cap=tcap, plain=plain)
 
-    def planes(c, tg, bm, bi, dims, cap, tcap):
-        src, tgt, lengths, *_ = _rows_inputs(c, None, tg, bm, bi, dims, cap, tcap)
-        return src, tgt, lengths, dims, cap, tcap
+    checked = _scenes_vs_plain(device, "rows_vs_plain", ROW_SCENES, search)
+    c, tg, bm, bi, dims, cap, tcap = _headline_frame0(device)
+    call = (c, None, tg, CUTOFF, bm, bi, dims, (True,) * 3, cap, tcap)
+    mk, ok_ = search(*call, False)
+    mp, op_ = search(*call, True)
+    if bool(ok_) or bool(op_) or not torch.equal(mk, mp):
+        raise AssertionError("rows_vs_plain headline shape: kernel and plain disagree or overflow")
+    checked.append("headline")
+    src, tgt, lengths, *_ = _rows_inputs(c, None, tg, bm, bi, dims, cap, tcap)
+    inputs = (src, tgt, lengths, dims, cap, tcap, _cutoff2(CUTOFF))
+    max_err = int((within_rows(*inputs).int() - _rows_stencil(*inputs).int()).abs().max())
+    if max_err:
+        raise AssertionError("rows_vs_plain headline shape: stencil hit blocks differ")
+    times = {"plain": [], "kernel": [], "plain_call": [], "kernel_call": []}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for which in order:
+            if which == "kernel":
+                times["kernel"].append(_cuda_ms(lambda: within_rows(*inputs), 50))
+                times["kernel_call"].append(_cuda_ms(lambda: search(*call, False), 20))
+            else:
+                times["plain"].append(_cuda_ms(lambda: _rows_stencil(*inputs), 10))
+                times["plain_call"].append(_cuda_ms(lambda: search(*call, True), 10))
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
 
-    return _kernel_vs_plain(device, "rows_vs_plain", ROW_SCENES, search, planes, within_rows,
-                            _rows_stencil)
+    # What the kernel needs read once: the validity plane, x/y/z of the
+    # valid source slots, the four planes of the occupied target slots and
+    # one pad penalty a cell (it stops at a cell's first pad slot), the
+    # lengths; the hit blocks written once. ~22 FLOPs a candidate pair (3
+    # sub, 3 div, 3 rint, 3 mul, 3 sub for the image, 3 mul, 3 add with the
+    # penalty, 1 compare).
+    nx, ny, nz = dims
+    n_cells = nx * ny * nz
+    sa = _search_args(c, None, tg, bm, bi, dims)
+    scount = torch.bincount(sa[3].long(), minlength=n_cells).clamp(max=cap)
+    tcount = torch.bincount(((sa[7] * ny + sa[8]) * nz + sa[9]).long(),
+                            minlength=n_cells).clamp(max=tcap)
+    pairs = _pairs(scount, tcount, dims, cap, tcap)
+    nbytes = (src[3].numel() * 4 + int(scount.sum()) * 12 + int(tcount.sum()) * 16
+              + int((tcount < tcap).sum()) * 4 + lengths.numel() * 4 + n_cells * cap)
+    bound = _bound(nbytes, pairs * 22)
+    phase("rows_vs_plain", scenes=len(checked), all_equal=True,
+          headline_shape=f"n={ATOMS},tgt={PROTEIN},dims={dims},cap={cap},tgt_cap={tcap}",
+          stencil_kernel_ms=ms["kernel"], stencil_plain_ms=ms["plain"],
+          call_kernel_ms=ms["kernel_call"], call_plain_ms=ms["plain_call"],
+          candidate_pairs=pairs, plane_bytes=nbytes, **bound,
+          stencil_kernel_ms_runs=repr([round(v, 5) for v in times["kernel"]]),
+          stencil_plain_ms_runs=repr([round(v, 4) for v in times["plain"]]),
+          names=",".join(checked))
+    return {"max_abs_err": max_err, "ms": ms["kernel"], "plain_ms": ms["plain"], **bound,
+            "frames_per_launch": 1, "library_ms": None}
 
 
 # ---------------------------------------------------------------- phases 7-8
@@ -581,21 +736,25 @@ def _timed_passes(repeats, fn):
     return out, passes
 
 
+def _wrappers():
+    from molar_tpu_torch.ops import neighbor_ghost, neighbor_rows
+
+    return {"cell_bins": neighbor_ghost.cell_bins, "within_ghost": neighbor_ghost.within_ghost,
+            "within_rows": neighbor_rows.within_rows}
+
+
 def _reset_launches():
-    from molar_tpu_torch.ops import neighbor_ghost, neighbor_rows
-
-    neighbor_ghost.within_ghost.launches = 0
-    neighbor_rows.within_rows.launches = 0
+    for wrapper in _wrappers().values():
+        wrapper.launches = 0
 
 
-def _launches():
-    from molar_tpu_torch.ops import neighbor_ghost, neighbor_rows
-
-    return neighbor_ghost.within_ghost.launches, neighbor_rows.within_rows.launches
+def _launches() -> dict:
+    return {name: wrapper.launches for name, wrapper in _wrappers().items()}
 
 
-def phase_rows_path(device, args, path, ghost, native_within0):
-    """The main path's trajectory through the row kernel (``search="rows"``)."""
+def phase_rows_path(device, args, path, ghost, native_within0, ghost_model, ghost_window):
+    """The main path's trajectory through the row kernel (``search="rows"``),
+    and no host sync in a window of either route."""
     from molar_tpu_torch import convert, headline
     from molar_tpu_torch.core.pbc import PeriodicBox
     from molar_tpu_torch.ops.neighbor import grid_dims_for
@@ -614,11 +773,14 @@ def phase_rows_path(device, args, path, ghost, native_within0):
     windows = TrajectoryReader([path]).iter_windows(WINDOW, quantized="delta")
     dev_windows = [convert.transport_to_torch(next(windows), device) for _ in range(2)]
     enqueue_ms = _no_sync_window(model, dev_windows[0])
+    ghost_enqueue_ms = _no_sync_window(ghost_model, ghost_window)
 
     _reset_launches()
     (ids, rmsd, count, check, retried), passes = _timed_passes(args.repeats, lambda: headline.run(
         path, ref, pmass, pidx, box, CUTOFF, dims, caps0, WINDOW, device, search="rows"))
-    ghost_launches, launches = _launches()
+    launches = _launches()
+    ghost_launches = launches["cell_bins"] + launches["within_ghost"]
+    launches = launches["within_rows"]
     if ghost_launches or launches < args.repeats * args.frames:
         raise AssertionError(f"rows path: {launches} row-kernel and {ghost_launches} ghost-kernel "
                              f"launches for {args.repeats} x {args.frames} frames")
@@ -640,7 +802,8 @@ def phase_rows_path(device, args, path, ghost, native_within0):
           frames_differing_from_ghost=vs_ghost, rmsd_max_abs_diff_vs_ghost=rmsd_vs_ghost,
           parity_diff=parity, native_parity_diff=native_parity,
           rmsd_max_abs_err_vs_cpu=rmsd_err, launches=launches, ghost_launches=ghost_launches,
-          no_sync_window=True, window_enqueue_ms=enqueue_ms)
+          no_sync_window=True, window_enqueue_ms=enqueue_ms, ghost_no_sync_window=True,
+          ghost_window_enqueue_ms=ghost_enqueue_ms)
     if vs_ghost or parity or native_parity or rmsd_err > 1e-5:
         raise AssertionError(f"rows path parity failed: vs_ghost={vs_ghost} parity_diff={parity} "
                              f"native_parity_diff={native_parity} rmsd_err={rmsd_err}")
@@ -680,7 +843,7 @@ def phase_dodecahedron(device, workdir):
         DODECA_REPEATS, lambda: headline.run(path, ref, pmass, pidx, box, CUTOFF, dims,
                                                   caps0, WINDOW, device))
     kernel_launches = _launches()
-    if any(kernel_launches):
+    if any(kernel_launches.values()):
         raise AssertionError(f"the correction path launched kernels {kernel_launches}")
     if not np.array_equal(ids, np.arange(DODECA_FRAMES)):
         raise AssertionError(f"dodecahedron stream returned frames {ids[:4]}... ({len(ids)})")
@@ -728,7 +891,7 @@ def main() -> int:
     device, name, _ = phase_device(port)
     native_exe = phase_build()
     sys.path.insert(0, str(HERE / "tests"))
-    stats = {"within_ghost": phase_kernel_vs_plain(device)}
+    stats = phase_kernel_vs_plain(device)
     from molar_tpu_torch import build
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -738,8 +901,8 @@ def main() -> int:
             device, args, native_exe, workdir)
         phase_stages(model, window)
         stats["within_rows"] = phase_rows_vs_plain(device)
-        rows_launches = phase_rows_path(device, args, os.path.join(workdir, "traj.xtc"), ghost,
-                                        native_within0)
+        launches["within_rows"] = phase_rows_path(
+            device, args, os.path.join(workdir, "traj.xtc"), ghost, native_within0, model, window)
         phase_dodecahedron(device, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -749,10 +912,11 @@ def main() -> int:
 
     import torch
 
-    counts = {"within_ghost": launches, "within_rows": rows_launches}
+    frames = args.repeats * args.frames
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": replaces,
-        "launches": counts[k], **stats[k],
+        "launches": launches[k], "launches_per_frame": launches[k] / frames, **stats[k],
+        "ms_per_frame": stats[k]["ms"] / stats[k]["frames_per_launch"],
     } for k, (src, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

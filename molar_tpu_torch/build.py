@@ -30,7 +30,8 @@ PKG_DIR = pathlib.Path(__file__).resolve().parent
 REPO_DIR = PKG_DIR.parent
 BUILD_DIR = REPO_DIR / "build" / "molar_tpu_torch"
 
-KERNEL_SOURCES = [PKG_DIR / "csrc" / "within_ghost.cu", PKG_DIR / "csrc" / "within_rows.cu"]
+KERNEL_SOURCES = [PKG_DIR / "csrc" / name
+                  for name in ("cell_bin.cu", "within_ghost.cu", "within_rows.cu")]
 CODEC_SOURCE = REPO_DIR / "molar_tpu" / "native" / "xtc_codec.cpp"
 BASELINE_SOURCE = REPO_DIR / "benchmarks" / "native_baseline.cpp"
 

@@ -7,9 +7,10 @@ against that selection, its count, and a uint32 membership checksum
 ``sum(idx + 1)`` mod 2^32 that catches any set difference, not just a count
 difference. The search takes one of three routes (:data:`SEARCHES`), fixed
 when the window function is built (:func:`convert.from_numpy` picks it from
-the box): the ghost-slab CUDA kernel, the row-tiled per-pair min-image CUDA
-kernel (orthorhombic boxes, full PBC), or the triclinic correction path
-(any box, correction candidates from each frame's own box).
+the box): the ghost-slab CUDA kernels (binning and stencil, once per
+window), the row-tiled per-pair min-image CUDA kernel (orthorhombic boxes,
+full PBC), or the triclinic correction path (any box, correction candidates
+from each frame's own box).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from torch import nn
 from . import convert
 from .io.xtc import XtcHandler
 from .ops.measure import fit_rmsd
-from .ops.neighbor import estimate_caps, within_mask
+from .ops.neighbor import estimate_caps, within_mask, within_mask_window
 from .ops.neighbor_rows import within_mask_rows
 from .tasks.trajectory import TrajectoryReader, decode_window_coords, run_with_overflow_retry
 
@@ -126,18 +127,21 @@ class FitWithinWindow(nn.Module):
     @torch.no_grad()
     def masks(self, coords, boxes, invs):
         """Per-frame within masks of decoded ``coords`` (B, N, 3) against
-        the selection -> (masks (B, N) bool, overflow (B,) bool)."""
+        the selection -> (masks (B, N) bool, overflow (B,) bool). The ghost
+        route searches the whole window in one call; the others go frame by
+        frame."""
+        if self.search == "ghost":
+            return within_mask_window(coords, None, self.protein_idx, self.cutoff, boxes, invs,
+                                      self.dims, cap=self.cap, tgt_cap=self.tgt_cap)
         corr = self.frame_corrections(boxes) if self.search == "corrections" else None
         masks, overflows = [], []
         for b in range(coords.shape[0]):
             args = (coords[b], None, self.protein_idx, self.cutoff, boxes[b], invs[b])
             if self.search == "rows":
                 mask, ofl = within_mask_rows(*args, self.dims, cap=self.cap, tgt_cap=self.tgt_cap)
-            elif self.search == "corrections":
+            else:
                 mask, ofl = within_mask(*args, corrections=corr[b], dims=self.dims, cap=self.cap,
                                         tgt_cap=self.tgt_cap, max_tgt_cells=self.max_tgt_cells)
-            else:
-                mask, ofl = within_mask(*args, dims=self.dims, cap=self.cap, tgt_cap=self.tgt_cap)
             masks.append(mask)
             overflows.append(ofl)
         return torch.stack(masks), torch.stack(overflows)

@@ -1,19 +1,22 @@
 """Cell-grid ``within`` search with periodic images, in torch.
 
 Counterpart of ``molar_tpu.ops.neighbor``'s ``within_mask``: points are
-wrapped into the unit cell and bucketed into fixed-capacity ``(n_cells,
-cap)`` structure-of-arrays planes (stable argsort + rank in run + scatter).
-Two regimes, as in the JAX package:
+wrapped into the unit cell and bucketed into fixed-capacity cells. Two
+regimes, as in the JAX package:
 
-* ``corrections is None`` — the ghost-slab search. The targets go into
-  ghost-padded ``(nx+2, ny+2, nz+2, tgt_cap)`` planes whose border cells
-  hold pre-shifted periodic images, and the 27-cell stencil needs no
-  gathers, no per-pair image math and no validity planes (pad slots are
-  +-1e17 sentinels). The planes are built here and handed to
-  :func:`.neighbor_ghost.within_ghost`, which launches the hand-written
-  kernel on CUDA tensors and runs its plain twin on CPU tensors;
-  ``plain=True`` runs the twin on any device (the reference the kernel is
-  held against on the card).
+* ``corrections is None`` — the ghost-slab search, for a window of frames
+  (:func:`within_mask_window`; :func:`within_mask` is its one-frame form).
+  On CUDA tensors it is two hand-written kernels
+  (:mod:`.neighbor_ghost`): a counting-sort binning of every frame into
+  cell records, then a 27-cell stencil that shifts the neighbour cells'
+  targets into their periodic images as it stages them and writes the
+  mask through the sources' list positions. On CPU tensors, and with
+  ``plain=True`` on any device (the reference the kernels are held against
+  on the card), it runs the plain twin frame by frame: ``(n_cells, cap)``
+  structure-of-arrays planes (stable argsort + rank in run + scatter),
+  ghost-padded ``(nx+2, ny+2, nz+2, tgt_cap)`` target planes whose border
+  cells hold pre-shifted images (pad slots are +-1e17 sentinels), the
+  stencil over them and the unsort — the JAX package's own steps.
 * ``corrections`` given — the per-pair min-image path of skewed boxes:
   inverse transform, round, forward transform, then the running minimum
   over the triclinic correction candidates, with validity planes (a
@@ -44,9 +47,9 @@ import numpy as np
 import torch
 
 from .. import config  # noqa: F401  (pins fp32 matmuls)
-from .neighbor_ghost import _OFFSETS, _ghost_stencil, within_ghost
+from .neighbor_ghost import _OFFSETS, _ghost_stencil, cell_bins, within_ghost
 
-__all__ = ["grid_dims", "grid_dims_for", "estimate_caps", "within_mask"]
+__all__ = ["grid_dims", "grid_dims_for", "estimate_caps", "within_mask", "within_mask_window"]
 
 # Pad-slot sentinels of the source and target planes. Opposite signs keep
 # pad-vs-pad differences far from zero; every d^2 stays finite in f32.
@@ -340,6 +343,49 @@ def _within_corrections(sx, sy, sz, sflat, tx, ty, tz, tcx, tcy, tcz, box, inv, 
     return (hits > 0) & svalid, s_slot, s_order, s_ofl | t_ofl | occ_ofl
 
 
+def within_mask_window(
+    coords,
+    src_idx,
+    tgt_idx,
+    cutoff: float,
+    boxes,
+    invs,
+    dims: tuple[int, int, int] = (1, 1, 1),
+    cap: int = 32,
+    tgt_cap=None,
+    pbc=(True, True, True),
+    plain: bool = False,
+):
+    """The ghost-slab search over a window of frames -> (masks (B, n_src)
+    bool, overflow (B,) bool); a frame's mask is undefined when its flag is
+    set. ``coords`` (B, N, 3) f32; ``src_idx`` int64 or None (every atom);
+    ``tgt_idx`` int64; ``boxes``/``invs`` (B, 3, 3), read on the coords'
+    device (no host read, no host sync).
+
+    Asserts orthorhombic boxes (or ones whose in-cutoff images are the
+    +-1-cell lattice shifts). CUDA tensors take the two kernels of
+    :mod:`.neighbor_ghost` (two launches for the whole window); CPU
+    tensors, or ``plain=True`` on any device, the plain twin frame by frame.
+    """
+    tgt_cap = tgt_cap or cap
+    n_src = coords.shape[1] if src_idx is None else src_idx.shape[0]
+    c2 = _cutoff2(cutoff)
+    if plain or coords.device.type == "cpu":
+        masks, overflows = [], []
+        for f in range(coords.shape[0]):
+            args = _search_args(coords[f], src_idx, tgt_idx, boxes[f], invs[f], dims)
+            src, ghost, s_slot, s_order, ofl = _ghost_inputs(*args, boxes[f], dims, cap, tgt_cap,
+                                                             pbc)
+            hit = _ghost_stencil(src, ghost, dims, cap, tgt_cap, c2)
+            masks.append(_unsort_mask(hit, s_slot, s_order, n_src))
+            overflows.append(ofl)
+        return torch.stack(masks), torch.stack(overflows)
+    src_rec, tgt_rec, counts, overflow = cell_bins(coords, src_idx, tgt_idx, boxes, invs, dims,
+                                                   cap, tgt_cap)
+    return within_ghost(src_rec, tgt_rec, counts, boxes, dims, cap, tgt_cap, pbc, c2,
+                        n_src), overflow
+
+
 def within_mask(
     coords,
     src_idx,
@@ -361,22 +407,21 @@ def within_mask(
 
     ``corrections is None`` asserts an orthorhombic box (or one whose
     in-cutoff images are the +-1-cell lattice shifts) and runs the
-    ghost-slab search (``plain`` runs the kernel's plain twin in its place).
-    For a skewed box pass its ``(K, 3)`` correction candidates (on the
-    device) and grid ``dims`` from :func:`grid_dims_for`; ``max_tgt_cells``
-    then selects the sparse-target variant with that many occupied-cell
-    slots (overflow beyond them raises the flag). Returns (mask, overflow
-    flag); the mask is undefined when the flag is set.
+    ghost-slab search, :func:`within_mask_window` on a window of one
+    (``plain`` runs the kernels' plain twin in their place). For a skewed
+    box pass its ``(K, 3)`` correction candidates (on the device) and grid
+    ``dims`` from :func:`grid_dims_for`; ``max_tgt_cells`` then selects the
+    sparse-target variant with that many occupied-cell slots (overflow
+    beyond them raises the flag). Returns (mask, overflow flag); the mask
+    is undefined when the flag is set.
     """
     tgt_cap = tgt_cap or cap
+    if corrections is None:
+        masks, overflow = within_mask_window(coords[None], src_idx, tgt_idx, cutoff, box[None],
+                                             inv[None], dims, cap, tgt_cap, pbc, plain)
+        return masks[0], overflow[0]
     n_src = coords.shape[0] if src_idx is None else src_idx.shape[0]
-    args = _search_args(coords, src_idx, tgt_idx, box, inv, dims)
-    if corrections is not None:
-        hit, s_slot, s_order, ofl = _within_corrections(
-            *args, box, inv, corrections, dims, cap, tgt_cap, pbc, _cutoff2(cutoff),
-            max_tgt_cells)
-        return _unsort_mask(hit, s_slot, s_order, n_src), ofl
-    src, ghost, s_slot, s_order, ofl = _ghost_inputs(*args, box, dims, cap, tgt_cap, pbc)
-    stencil = _ghost_stencil if plain else within_ghost
-    hit = stencil(src, ghost, dims, cap, tgt_cap, _cutoff2(cutoff))
+    hit, s_slot, s_order, ofl = _within_corrections(
+        *_search_args(coords, src_idx, tgt_idx, box, inv, dims), box, inv, corrections, dims,
+        cap, tgt_cap, pbc, _cutoff2(cutoff), max_tgt_cells)
     return _unsort_mask(hit, s_slot, s_order, n_src), ofl

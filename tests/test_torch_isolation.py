@@ -114,7 +114,8 @@ def test_no_jax_or_reference_imports_in_the_port():
 def test_kernel_source_is_cuda_for_hopper():
     from molar_tpu_torch import build
 
-    for name, replaces in (("within_ghost.cu", "neighbor_pallas.py:_ghost_kernel"),
+    for name, replaces in (("cell_bin.cu", "neighbor_pallas.py:within_ghost_pallas"),
+                           ("within_ghost.cu", "neighbor_pallas.py:_ghost_kernel"),
                            ("within_rows.cu", "neighbor_pallas.py:_kernel")):
         src = (PORT / "csrc" / name).read_text()
         assert "__global__" in src and 'extern "C"' in src

@@ -1,14 +1,17 @@
 """The port's CUDA kernels against their plain twins on the shared scenes.
 
 This file imports no JAX, so it runs where the card is. The ``cuda``-marked
-tests launch ``csrc/within_ghost.cu`` (random scenes, cutoff ties, tiny and
-collapsed periodic grids, partial PBC, a small solvated protein) and
+tests launch ``csrc/cell_bin.cu`` + ``csrc/within_ghost.cu`` (random
+scenes, cutoff ties, tiny and collapsed periodic grids, partial PBC, a
+small solvated protein, and windows of frames each in its own box) and
 ``csrc/within_rows.cu`` (the orthorhombic full-PBC scenes plus the row
-kernel's own, one with a 2-cell axis), and require each mask and overflow
-flag to equal the plain twin's exactly; they also hold the triclinic
-correction path (plain torch) on the card against the CPU on a rhombic
-dodecahedron, with host syncs made errors. They skip without a card. On
-the card, without the repository's conftest (which imports JAX):
+kernel's own, one with a 2-cell axis), and require each mask, overflow
+flag and cell's member set to equal the plain twin's exactly; they also
+hold the triclinic correction path (plain torch) on the card against the
+CPU on a rhombic dodecahedron, with host syncs made errors, and the RMSD
+fit against a float64 Kabsch with TF32 pinned off and deliberately on.
+They skip without a card. On the card, without the repository's conftest
+(which imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
@@ -24,7 +27,10 @@ import torch
 from molar_tpu_torch.core.pbc import PeriodicBox
 from molar_tpu_torch.ops import neighbor, neighbor_ghost, neighbor_rows
 
-from torch_scenes import ROW_SCENES, SCENES, TIE_MEMBERS, dodeca_scene, scene
+from torch_scenes import (
+    GHOST_SCENES, ROW_SCENES, TIE_MEMBERS, blocked_members, cell_members, dodeca_scene, scene,
+    window,
+)
 
 
 def _search(name, device, **kw):
@@ -49,24 +55,51 @@ def test_plain_twin_keeps_exact_ties(name):
     assert not ofl and got.tolist() == TIE_MEMBERS[name]
 
 
+def _ghost_inputs(device, n_frames=2):
+    coords, src, tgt, cutoff, boxes, invs, pbc, cap, dims = window("random19", n_frames)
+    t = [torch.as_tensor(a).to(device) for a in (coords, tgt, boxes, invs)]
+    return t, dims, cap, pbc, neighbor._cutoff2(cutoff)
+
+
 def test_kernel_wrapper_runs_plain_twin_on_cpu_tensors():
-    g = torch.Generator().manual_seed(4)
-    src = [torch.rand(8, 4, generator=g) for _ in range(3)]
-    ghost = [torch.rand(4, 4, 4, 4, generator=g) for _ in range(3)]
-    before = neighbor_ghost.within_ghost.launches
-    got = neighbor_ghost.within_ghost(src, ghost, (2, 2, 2), 4, 4, 0.25)
-    want = neighbor_ghost._ghost_stencil(src, ghost, (2, 2, 2), 4, 4, 0.25)
-    assert neighbor_ghost.within_ghost.launches == before
-    assert got.any() and torch.equal(got, want)
+    (coords, tgt, boxes, invs), dims, cap, pbc, c2 = _ghost_inputs("cpu")
+    before = neighbor_ghost.cell_bins.launches, neighbor_ghost.within_ghost.launches
+    bins = neighbor_ghost.cell_bins(coords, None, tgt, boxes, invs, dims, cap, cap)
+    want = neighbor_ghost._cell_bins_plain(coords, None, tgt, boxes, invs, dims, cap, cap)
+    assert all(torch.equal(a, b) for a, b in zip(bins, want))
+    got = neighbor_ghost.within_ghost(*bins[:3], boxes, dims, cap, cap, pbc, c2, coords.shape[1])
+    twin = neighbor_ghost._bins_stencil(*bins[:3], boxes, dims, cap, cap, pbc, c2,
+                                        coords.shape[1])
+    assert (neighbor_ghost.cell_bins.launches, neighbor_ghost.within_ghost.launches) == before
+    assert got.any() and not got.all() and torch.equal(got, twin)
+
+
+def _stencil_on_a_prefix(device):
+    """The stencil over records binned from every atom, asked for the first
+    half of the atoms only -> (that mask, the whole mask's first half)."""
+    (coords, tgt, boxes, invs), dims, cap, pbc, c2 = _ghost_inputs(device)
+    bins = neighbor_ghost.cell_bins(coords, None, tgt, boxes, invs, dims, cap, cap)
+    n = coords.shape[1]
+    whole = neighbor_ghost.within_ghost(*bins[:3], boxes, dims, cap, cap, pbc, c2, n)
+    part = neighbor_ghost.within_ghost(*bins[:3], boxes, dims, cap, cap, pbc, c2, n // 2)
+    return part, whole[:, : n // 2]
+
+
+def test_stencil_twin_writes_only_positions_below_n_src():
+    part, want = _stencil_on_a_prefix("cpu")
+    assert part.shape == want.shape and want.any() and torch.equal(part, want)
 
 
 def test_kernel_wrapper_refuses_other_devices():
-    src = [torch.zeros(8, 4, device="meta") for _ in range(3)]
-    ghost = [torch.zeros(4, 4, 4, 4, device="meta") for _ in range(3)]
-    before = neighbor_ghost.within_ghost.launches
+    (coords, tgt, boxes, invs), dims, cap, pbc, c2 = _ghost_inputs("meta")
+    recs = [torch.zeros(2, 120, cap, 4, device="meta") for _ in range(2)]
+    counts = torch.zeros(2, 2, 120, dtype=torch.int32, device="meta")
+    before = neighbor_ghost.cell_bins.launches, neighbor_ghost.within_ghost.launches
     with pytest.raises(ValueError, match="CUDA"):
-        neighbor_ghost.within_ghost(src, ghost, (2, 2, 2), 4, 4, 0.25)
-    assert neighbor_ghost.within_ghost.launches == before
+        neighbor_ghost.cell_bins(coords, None, tgt, boxes, invs, dims, cap, cap)
+    with pytest.raises(ValueError, match="CUDA"):
+        neighbor_ghost.within_ghost(*recs, counts, boxes, dims, cap, cap, pbc, c2, 900)
+    assert (neighbor_ghost.cell_bins.launches, neighbor_ghost.within_ghost.launches) == before
 
 
 def _rows_search(name, device, plain=False, **kw):
@@ -121,14 +154,17 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", SCENES)
+@pytest.mark.parametrize("name", GHOST_SCENES)
 def test_kernel_matches_plain_on_card(cuda_device, name):
-    before = neighbor_ghost.within_ghost.launches
+    before = neighbor_ghost.cell_bins.launches, neighbor_ghost.within_ghost.launches
     got, ofl = _search(name, cuda_device)
     torch.cuda.synchronize()
-    assert neighbor_ghost.within_ghost.launches == before + 1
+    assert neighbor_ghost.cell_bins.launches == before[0] + 1
+    assert neighbor_ghost.within_ghost.launches == before[1] + 1
+    twin, tofl = _search(name, cuda_device, plain=True)
     want, wofl = _search(name, "cpu")
-    assert ofl is wofl is False
+    assert ofl is tofl is wofl is False
+    np.testing.assert_array_equal(got, twin)
     np.testing.assert_array_equal(got, want)
 
 
@@ -141,17 +177,69 @@ def test_kernel_overflow_flag_on_card(cuda_device, cap, tgt_cap):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", GHOST_SCENES)
+def test_ghost_window_on_card_matches_twin(cuda_device, name):
+    """A 4-frame window, each frame in its own box: masks and flags against
+    the plain twin, the binning's counts against ``bincount`` and each
+    cell's members (positions and coordinates) against the plain plane
+    build, frame by frame."""
+    coords, src, tgt, cutoff, boxes, invs, pbc, cap, dims = window(name)
+    d = [None if a is None else torch.as_tensor(a).to(cuda_device)
+         for a in (coords, src, tgt, boxes, invs)]
+    masks, ofl = neighbor.within_mask_window(*d[:3], cutoff, *d[3:], dims, cap, cap, pbc)
+    twin, tofl = neighbor.within_mask_window(*d[:3], cutoff, *d[3:], dims, cap, cap, pbc,
+                                             plain=True)
+    assert not ofl.any() and torch.equal(ofl, tofl)
+    assert torch.equal(masks, twin) and masks.any()
+    src_rec, tgt_rec, counts, _ = neighbor_ghost.cell_bins(*d, dims, cap, cap)
+    sizes = (coords.shape[1] if src is None else len(src), len(tgt))
+    for f in range(coords.shape[0]):
+        want = blocked_members(d[0][f], d[1], d[2], d[3][f], d[4][f], dims, cap, cap)
+        for k, (rec, (pos, xyz)) in enumerate(zip((src_rec[f], tgt_rec[f]), want)):
+            got_pos, got_xyz = cell_members(rec, counts[f, k], cap)
+            assert torch.equal(got_pos, pos) and torch.equal(got_xyz, xyz)
+            assert torch.equal(counts[f, k], (pos >= 0).sum(-1).int())
+            assert int(counts[f, k].sum()) == sizes[k]
+
+
+@pytest.mark.cuda
+def test_binning_flags_an_index_outside_the_frame(cuda_device):
+    (coords, tgt, boxes, invs), dims, cap, pbc, c2 = _ghost_inputs(cuda_device)
+    tgt = tgt.clone()
+    tgt[-1] = coords.shape[1]
+    *_, ofl = neighbor_ghost.cell_bins(coords, None, tgt, boxes, invs, dims, cap, cap)
+    assert ofl.all()
+
+
+@pytest.mark.cuda
+def test_stencil_kernel_writes_only_positions_below_n_src(cuda_device):
+    part, want = _stencil_on_a_prefix(cuda_device)
+    assert part.shape == want.shape and want.any() and torch.equal(part, want)
+
+
+@pytest.mark.cuda
 def test_kernel_wrapper_rejects_bad_planes(cuda_device):
-    src = [torch.zeros(8, 4, device=cuda_device) for _ in range(3)]
-    ghost = [torch.zeros(4, 4, 4, 4, device=cuda_device) for _ in range(3)]
+    (coords, tgt, boxes, invs), dims, cap, pbc, c2 = _ghost_inputs(cuda_device)
     with pytest.raises(ValueError, match="shape"):
-        neighbor_ghost.within_ghost(src, ghost, (2, 2, 2), 8, 4, 0.25)
+        neighbor_ghost.cell_bins(coords, None, tgt, boxes[:1], invs, dims, cap, cap)
     with pytest.raises(TypeError, match="float32"):
-        neighbor_ghost.within_ghost([s.double() for s in src], ghost, (2, 2, 2), 4, 4, 0.25)
+        neighbor_ghost.cell_bins(coords.double(), None, tgt, boxes, invs, dims, cap, cap)
+    with pytest.raises(TypeError, match="int64"):
+        neighbor_ghost.cell_bins(coords, None, tgt.int(), boxes, invs, dims, cap, cap)
     with pytest.raises(ValueError, match="contiguous"):
-        neighbor_ghost.within_ghost(
-            [torch.zeros(4, 8, device=cuda_device).t() for _ in range(3)], ghost,
-            (2, 2, 2), 4, 4, 0.25)
+        neighbor_ghost.cell_bins(coords.transpose(0, 1).contiguous().transpose(0, 1), None, tgt,
+                                 boxes, invs, dims, cap, cap)
+    src_rec, tgt_rec, counts, _ = neighbor_ghost.cell_bins(coords, None, tgt, boxes, invs, dims,
+                                                           cap, cap)
+    n = coords.shape[1]
+    with pytest.raises(ValueError, match="shape"):
+        neighbor_ghost.within_ghost(src_rec, tgt_rec, counts, boxes, dims, cap + 8, cap, pbc, c2, n)
+    with pytest.raises(TypeError, match="int32"):
+        neighbor_ghost.within_ghost(src_rec, tgt_rec, counts.long(), boxes, dims, cap, cap, pbc,
+                                    c2, n)
+    with pytest.raises(ValueError, match="bad sizes"):
+        neighbor_ghost.within_ghost(src_rec, tgt_rec, counts, boxes, (0, 1, 1), cap, cap, pbc,
+                                    c2, n)
 
 
 @pytest.mark.cuda
@@ -220,3 +308,58 @@ def test_correction_path_on_card_matches_cpu_without_sync(cuda_device, sparse):
     want, wofl = run("cpu")
     assert ofl is wofl is False and got.any()
     np.testing.assert_array_equal(got, want)
+
+
+def _fit_rmsd64(frames, ref, masses):
+    """Float64 mass-weighted RMSD of each frame to ``ref`` after the optimal
+    rigid fit (Kabsch by SVD, reflections excluded)."""
+    w = masses / masses.sum()
+    b = ref - w @ ref
+    out = []
+    for x in frames.astype(np.float64):
+        a = x - w @ x
+        u, _, vt = np.linalg.svd((a * w[:, None]).T @ b)
+        r = vt.T @ np.diag([1.0, 1.0, np.sign(np.linalg.det(vt.T @ u.T))]) @ u.T
+        out.append(np.sqrt(w @ ((a @ r.T - b) ** 2).sum(1)))
+    return np.array(out)
+
+
+@pytest.mark.cuda
+def test_fit_rmsd_tf32_on_card(cuda_device):
+    """The headline's fit (5,000 selected atoms, 16 random-walk frames)
+    against a float64 Kabsch, with TF32 pinned off and deliberately on; the
+    pins are restored. TF32 is live when on (a 2048² product moves off
+    float64 by more than 1e-4 relative) but does not move the fit off the
+    1e-5 RMSD bar: measured 9.5e-9 pinned and 9.2e-9 with TF32 on an H100.
+    The optimal RMSD is stationary in the rotation, so the covariance
+    product's rounding enters only at second order."""
+    from molar_tpu_torch.headline import make_system
+    from molar_tpu_torch.ops.measure import fit_rmsd
+
+    coords0, masses = make_system(100_000, 5000, np.diag([10.0] * 3))
+    ref, m = coords0[:5000], masses[:5000]
+    steps = np.random.default_rng(1).normal(0, 0.02, (16, 5000, 3))
+    frames = (ref[None] + np.cumsum(steps, axis=0)).astype(np.float32)
+    want = _fit_rmsd64(frames, ref.astype(np.float64), m.astype(np.float64))
+    args = [torch.as_tensor(a).to(cuda_device) for a in (frames, ref, m)]
+    a, b = np.random.default_rng(2).normal(size=(2, 2048, 2048)).astype(np.float32)
+    prod = a.astype(np.float64) @ b.astype(np.float64)
+    ta, tb = torch.as_tensor(a).to(cuda_device), torch.as_tensor(b).to(cuda_device)
+
+    def errors():
+        fit = float(np.abs(fit_rmsd(*args)[0].cpu().numpy() - want).max())
+        return fit, float(np.abs((ta @ tb).cpu().numpy() - prod).max() / np.abs(prod).max())
+
+    pinned, pinned_prod = errors()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32, tf32_prod = errors()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    print(f"max abs error vs float64: fit_rmsd pinned {pinned:.3e}, TF32 {tf32:.3e}; "
+          f"2048^2 product (relative) pinned {pinned_prod:.3e}, TF32 {tf32_prod:.3e}")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert pinned_prod < 1e-5 < 1e-4 < tf32_prod
+    assert pinned <= 1e-5 and tf32 <= 1e-5

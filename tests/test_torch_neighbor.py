@@ -161,20 +161,21 @@ def test_rank_and_planes_match_jax_bitwise():
             np.testing.assert_array_equal(g.numpy(), np.asarray(jg))
 
 
-def test_triclinic_is_not_ported():
+def test_triclinic_takes_the_correction_path():
     """A skewed box with its corrections takes the correction path, not
-    the ghost kernel, and gives the host search's set."""
+    the ghost kernels, and gives the host search's set."""
     from molar_tpu_torch.core.pbc import PeriodicBox as TorchBox
 
     jbox = PeriodicBox.from_vectors_angles(3.0, 3.2, 3.4, 75.0, 80.0, 70.0)
     box = TorchBox(jbox.matrix)
     coords = np.random.default_rng(6).uniform(0, 3, (200, 3)).astype(np.float32)
     tgt = np.arange(0, 200, 9)
-    before = neighbor_ghost.within_ghost.launches
+    before = neighbor_ghost.cell_bins.launches, neighbor_ghost.within_ghost.launches
     mask, ofl = neighbor.within_mask(
         _t(coords), None, _t(tgt), 0.5, _t(box.matrix), _t(box.inv),
         corrections=_t(box.padded_corrections()), dims=neighbor.grid_dims_for(box, 0.5), cap=32)
-    assert not bool(ofl) and neighbor_ghost.within_ghost.launches == before
+    assert not bool(ofl)
+    assert (neighbor_ghost.cell_bins.launches, neighbor_ghost.within_ghost.launches) == before
     want = neighbor_host.search_within(0.5, coords, np.arange(200), tgt, jbox, PbcDims())
     np.testing.assert_array_equal(np.flatnonzero(mask.numpy()), want)
 

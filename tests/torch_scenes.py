@@ -4,7 +4,10 @@ Random scenes, exact cutoff ties (values exact in float32: an inclusive
 cutoff keeps the tie, one ulp-scale step beyond it drops it), tiny and
 collapsed periodic grids where several images of one cell are in range,
 partial PBC, and a small solvated protein at the headline's density. They
-rebuild the knife-edge cases of the JAX package's neighbour tests. The row
+rebuild the knife-edge cases of the JAX package's neighbour tests;
+:func:`window` makes a window of frames of one, each in its own box, and
+:func:`cell_members` / :func:`blocked_members` put cell contents in one
+order for comparison. The row
 scenes (:data:`ROW_SCENES`) are the orthorhombic full-PBC ones plus those of
 the row kernel's own tests, one with a 2-cell axis. The dodecahedron scenes
 fill rhombic dodecahedra at 100 atoms/nm^3, and :func:`brute_within` is
@@ -69,6 +72,13 @@ def scene(name):
         rng = np.random.default_rng(5)
         coords = rng.uniform(0, 4, (200, 3)).astype(np.float32)
         return coords, None, np.arange(0, 200, 5), 0.9, (2.0, 4.0, 4.0), full, 128
+    if name == "crowded":
+        # 8,000 targets in every 27-cell neighbourhood (more than the ghost
+        # stencil kernel stages at once) and ~300 sources a cell (more than
+        # one pass of its threads).
+        rng = np.random.default_rng(23)
+        coords = rng.uniform(0, 3, (8000, 3)).astype(np.float32)
+        return coords, None, np.arange(8000), 0.9, (3.0,) * 3, full, 400
     if name == "solvated_protein":
         from molar_tpu_torch.headline import make_system
 
@@ -84,12 +94,77 @@ SCENES = ["random7", "random19", "tie_at_cutoff", "tie_across_boundary",
           "tiny_periodic_2.6", "dim1_all", "dim1_x", "partial_pbc_TFT",
           "tiny_grid_1.7_0.4", "solvated_protein"]
 
+#: The ghost kernels' scenes: every shared scene, and one that needs the
+#: stencil kernel's chunked staging and several thread passes.
+GHOST_SCENES = SCENES + ["crowded"]
+
 #: Source indices the inclusive cutoff must keep in the tie scenes.
 TIE_MEMBERS = {"tie_at_cutoff": [1, 3], "tie_across_boundary": [1]}
 
 #: Scenes of the row-tiled min-image search (orthorhombic, full PBC).
 ROW_SCENES = [n for n in SCENES if n != "partial_pbc_TFT"] + [
     "pallas11_0.5", "pallas3_0.8", "small_grid_2x4x4"]
+
+
+def window(name, n_frames: int = 4, seed: int = 0):
+    """A window of ``n_frames`` frames of scene ``name``: each frame its
+    coordinates plus N(0, 0.05) noise, in its own box (sides scaled by
+    U(0.97, 1.03) per axis; frame 0 keeps the scene's box) -> (coords (B, N,
+    3) f32, src, tgt, cutoff, boxes (B, 3, 3) f32, invs, pbc, cap, dims).
+    ``dims`` fits the smallest box of each axis; ``cap`` is the window's
+    largest cell occupancy (sources or targets) plus 2, rounded up to 8."""
+    coords, src, tgt, cutoff, sides, pbc, _ = scene(name)
+    rng = np.random.default_rng(seed)
+    scale = np.concatenate([np.ones((1, 3)), rng.uniform(0.97, 1.03, (n_frames - 1, 3))])
+    sides = np.asarray(sides, np.float32) * scale.astype(np.float32)
+    boxes = np.stack([np.diag(s) for s in sides]).astype(np.float32)
+    invs = np.linalg.inv(boxes.astype(np.float64)).astype(np.float32)
+    frames = coords[None] + rng.normal(0, 0.05, (n_frames, *coords.shape)).astype(np.float32)
+    frames[0] = coords
+    dims = tuple(max(int(np.floor(float(s) / cutoff)), 1) for s in sides.min(axis=0))
+    occupancy = 0
+    for f in range(n_frames):
+        cell = np.minimum((((frames[f] / sides[f]) % 1.0) * dims).astype(np.int64),
+                          np.asarray(dims) - 1) @ np.array([dims[1] * dims[2], dims[2], 1])
+        for idx in (np.arange(len(coords)) if src is None else src, tgt):
+            occupancy = max(occupancy, np.bincount(cell[idx]).max())
+    return frames, src, tgt, cutoff, boxes, invs, pbc, (occupancy + 2 + 7) // 8 * 8, dims
+
+
+def cell_members(rec, counts, cap: int):
+    """Each cell's members of cell records, in list-position order ->
+    (positions (..., n_cells, cap) int64, -1 past the count; coordinates
+    (..., n_cells, cap, 3), 0 past the count). ``rec`` (..., n_cells, cap, 4)
+    with positions as int32 bits in the fourth lane; ``counts`` (...,
+    n_cells)."""
+    import torch
+
+    valid = torch.arange(cap, device=rec.device) < counts.clamp(max=cap)[..., None]
+    pos = rec[..., 3].contiguous().view(torch.int32).long()
+    pos, order = torch.where(valid, pos, torch.iinfo(torch.int64).max).sort(dim=-1)
+    xyz = torch.gather(rec[..., :3], -2, order[..., None].expand(*order.shape, 3))
+    return torch.where(valid, pos, -1), torch.where(valid[..., None], xyz, 0.0)
+
+
+def blocked_members(coords, src_idx, tgt_idx, box, inv, dims, cap: int, tgt_cap: int):
+    """One frame's cell members by the plain plane build
+    (``ops.neighbor._blocked_planes``, stable: list-position order) ->
+    ((source positions, source coordinates), (target positions, target
+    coordinates)) in :func:`cell_members`' layout."""
+    import torch
+
+    from molar_tpu_torch.ops.neighbor import _blocked_planes, _search_args
+
+    nx, ny, nz = dims
+    sx, sy, sz, sflat, tx, ty, tz, tcx, tcy, tcz = _search_args(coords, src_idx, tgt_idx, box,
+                                                                 inv, dims)
+    tflat = (tcx * ny + tcy) * nz + tcz
+    out = []
+    for pts, flat, k in (((sx, sy, sz), sflat, cap), ((tx, ty, tz), tflat, tgt_cap)):
+        pos = torch.arange(pts[0].shape[0], device=coords.device)
+        planes, *_ = _blocked_planes([*pts, pos], flat, nx * ny * nz, k, [0.0, 0.0, 0.0, -1])
+        out.append((planes[3], torch.stack(planes[:3], -1)))
+    return tuple(out)
 
 
 def dodecahedron(d: float) -> np.ndarray:
