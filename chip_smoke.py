@@ -7,11 +7,11 @@ Kabsch RMSD of a 5k-atom "protein") and searched (0.5 nm periodic ``within``
 of every atom against the protein), through each of the port's three search
 routes: the hand-written ghost-slab CUDA kernels (a counting-sort binning of
 the window into cells, then a 27-cell stencil, two launches a window) and
-the hand-written row-tiled per-pair min-image CUDA kernel on the
-headline's cubic box, and the triclinic correction path (plain torch) on a
-rhombic dodecahedron of the same density. Weights do not exist here; the
-systems and their trajectories are made from seeds. Phases, one line each
-on stdout:
+the hand-written per-pair min-image CUDA kernel over the same binning (two
+launches a window too) on the headline's cubic box, and the triclinic
+correction path (plain torch) on a rhombic dodecahedron of the same density.
+Weights do not exist here; the systems and their trajectories are made from
+seeds. Phases, one line each on stdout:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the CUDA kernels, the XTC codec and the native C++ reference,
@@ -32,17 +32,24 @@ on stdout:
    the host decode / H2D / device split and the device's busy share;
 5. stages: one resident window, stage by stage (decode, fit_rmsd, search,
    checksum), host enqueue and device time of each stage and the number of
-   device operations;
-6. rows kernel vs plain: the row kernel's mask and overflow flag against
-   its plain twin on the same CUDA tensors (exact equality) on the
-   orthorhombic full-PBC scenes (a 2-cell axis among them), an overflow
-   scene and the headline shape, with both times and the bound at the
-   headline shape;
+   device operations, for the ghost route and for the row route;
+6. rows kernel vs plain: the per-pair min-image search against its plain
+   twin on the same CUDA tensors (exact equality) on the orthorhombic
+   full-PBC scenes (a 2-cell axis among them), the tie scenes' members and
+   an overflow scene, one frame each; the same scenes and the crowded one
+   (chunked staging) as 4-frame windows, each frame in its own box, also
+   against the ghost route's masks and, for the stencil kernel alone in its
+   tiled and its block-per-cell launch, against its twin on the same cell
+   records; then the 16-frame headline window the same way, with the
+   kernel's time (both launches), its twin's, the whole call's and the
+   bound (from this window's data). Kernel times are one CUDA-graph replay
+   of many launches between two events, so that no host time is in them;
 7. rows path: the main path's trajectory through ``search="rows"``:
    every frame's count and checksum equal the ghost path's, frames 0 / mid
    / last the CPU run of the row twin, frame 0 the native C++ program, no
-   host sync inside a window of either route (as in 8); fps, the device's
-   busy share and the row kernel's launches;
+   host sync inside a window of either route (as in 8), no sort, running
+   maximum or scatter among the device's operations; fps, the device's
+   busy share and the kernels' launches;
 8. dodecahedron path: 100k atoms (a 5k-atom protein ball) in a rhombic
    dodecahedron at 100 atoms/nm^3, 64 frames through the sparse-target
    correction path with overflow retry: frames 0 / mid / last against the
@@ -54,7 +61,8 @@ on stdout:
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: the ghost path must launch only the two ghost kernels,
-the rows path only the row kernel, and the dodecahedron path none.
+the rows path the binning kernel and the row kernel once a window each and
+never the ghost stencil, and the dodecahedron path none.
 
 Any failure raises, and then the script exits non-zero without its last
 line. The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -186,9 +194,32 @@ def _cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def _graph_ms(fn, n: int) -> float:
+    """Device ms of one ``fn()``: ``n`` calls captured into a CUDA graph, two
+    events around one replay. Nothing is enqueued by the host between the
+    launches, so a slow host does not show up as kernel time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def _device_profile(fn):
     """Run ``fn`` under ``torch.profiler``: (wall ms, device-busy ms as the
-    union of kernel and copy intervals, top device ops by self time)."""
+    union of kernel and copy intervals, top device ops by self time, the
+    names of all ops with device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -212,7 +243,8 @@ def _device_profile(fn):
     ops = sorted(((e.key, e.self_device_time_total) for e in prof.key_averages()
                   if e.self_device_time_total > 0 and not e.key.startswith(("void ", "(anon"))),
                  key=lambda kv: -kv[1])
-    return wall * 1e3, busy / 1e3, [(k, round(v / 1e3, 3)) for k, v in ops[:4]]
+    top = [(k, round(v / 1e3, 3)) for k, v in ops[:4]]
+    return wall * 1e3, busy / 1e3, top, [k for k, _ in ops]
 
 
 def _scenes_vs_plain(device, label, scenes, search):
@@ -282,9 +314,11 @@ def _pairs(scount, tcount, dims, cap: int, tcap: int) -> int:
     return int((scount.clamp(max=cap) * _near(tcount, dims, tcap)).sum())
 
 
-def _headline_frame0(device):
-    """The main path's frame-0 system at tier-0 caps -> (coords, protein
-    indices, box, inv (device tensors), dims, cap, tgt_cap)."""
+def _headline_window(device):
+    """A full 16-frame headline window at tier-0 caps: frame 0 of the main
+    path's system plus a seeded 0.02 nm random walk, as
+    ``headline.write_trajectory`` makes it -> (coords (16, N, 3), protein
+    indices, boxes, invs (device tensors), dims, cap, tgt_cap)."""
     import torch
 
     from molar_tpu_torch import headline
@@ -297,17 +331,29 @@ def _headline_frame0(device):
     pidx = np.arange(PROTEIN)
     cap, tcap, _ = headline.caps_for(
         *estimate_caps(coords0, box.inv, dims, pidx, margin=1.0, round_to=1), 0)
-    c, tg, bm, bi = (torch.as_tensor(a, device=device) for a in (coords0, pidx, box.matrix,
-                                                                 box.inv))
-    return c, tg, bm, bi, dims, cap, tcap
+    c0, tgt, bm, bi = (torch.as_tensor(a, device=device) for a in (coords0, pidx, box.matrix,
+                                                                   box.inv))
+    steps = np.random.default_rng(1).normal(0, 0.02, (WINDOW, ATOMS, 3))
+    coords = (c0[None] + torch.as_tensor(np.cumsum(steps, axis=0), device=device)).float()
+    boxes, invs = bm.expand(WINDOW, 3, 3).contiguous(), bi.expand(WINDOW, 3, 3).contiguous()
+    return coords, tgt, boxes, invs, dims, cap, tcap
+
+
+def _window_work(counts, dims, cap: int, tcap: int):
+    """What a stencil over a window's cell records has to touch, from its
+    per-cell counts (B, 2, n_cells) -> (candidate pairs, live sources,
+    occupied target slots): a source is live when its 27-cell
+    neighbourhood holds a target; the others keep the mask's zero."""
+    scount, tcount = counts[:, 0].clamp(max=cap), counts[:, 1].clamp(max=tcap)
+    live_src = int((scount * (_near(tcount, dims, tcap) > 0)).sum())
+    return _pairs(scount, tcount, dims, cap, tcap), live_src, int(tcount.sum())
 
 
 def phase_kernel_vs_plain(device):
     """The two ghost kernels against their plain twins: every shared scene
-    through ``within_mask``, then a full 16-frame headline window (frame 0
-    of the main path's system plus a seeded 0.02 nm random walk, as
-    ``headline.write_trajectory`` makes it) through each kernel and the
-    whole window search. Returns the kernel records of both."""
+    through ``within_mask``, then a full 16-frame headline window through
+    each kernel and the whole window search. Returns the kernel records of
+    both."""
     import torch
 
     from molar_tpu_torch.ops import neighbor_ghost as ng
@@ -323,10 +369,7 @@ def phase_kernel_vs_plain(device):
 
     checked = _scenes_vs_plain(device, "kernel_vs_plain", GHOST_SCENES, search)
 
-    c0, tgt, bm, bi, dims, cap, tcap = _headline_frame0(device)
-    steps = np.random.default_rng(1).normal(0, 0.02, (WINDOW, ATOMS, 3))
-    coords = (c0[None] + torch.as_tensor(np.cumsum(steps, axis=0), device=device)).float()
-    boxes, invs = bm.expand(WINDOW, 3, 3).contiguous(), bi.expand(WINDOW, 3, 3).contiguous()
+    coords, tgt, boxes, invs, dims, cap, tcap = _headline_window(device)
     nx, ny, nz = dims
     n_cells = nx * ny * nz
     full = (True,) * 3
@@ -386,12 +429,10 @@ def phase_kernel_vs_plain(device):
     # live cells only (a target in their 27-cell neighbourhood): the other
     # sources keep the mask's zero.
     n_pts = WINDOW * (ATOMS + PROTEIN)
-    scount, tcount = counts[:, 0].clamp(max=cap), counts[:, 1].clamp(max=tcap)
-    live_src = int((scount * (_near(tcount, dims, tcap) > 0)).sum())
-    pairs = _pairs(scount, tcount, dims, cap, tcap)
+    pairs, live_src, occupied = _window_work(counts, dims, cap, tcap)
     coord_bytes = coords.numel() * 4 + tgt.numel() * 8 + 2 * boxes.numel() * 4
     bins_bound = _bound(coord_bytes + n_pts * 16 + counts.numel() * 4 + WINDOW, n_pts * 40)
-    stencil_bytes = ((live_src + int(tcount.sum())) * 16 + counts.numel() * 4
+    stencil_bytes = ((live_src + occupied) * 16 + counts.numel() * 4
                      + boxes.numel() * 4 + WINDOW * ATOMS)
     stencil_bound = _bound(stencil_bytes, pairs * 9)
     whole_bound = _bound(coord_bytes + WINDOW * ATOMS + WINDOW, pairs * 9)
@@ -515,7 +556,7 @@ def phase_main_path(device, args, native_exe, workdir):
     compute_all()
     torch.cuda.synchronize()
     t_compute = time.perf_counter() - t0
-    prof_wall, prof_busy, prof_top = _device_profile(
+    prof_wall, prof_busy, prof_top, _ = _device_profile(
         lambda: [model0(*w) for w in dev_windows[:2]])
 
     # Parity: frame 0 against the native C++ program; frames 0 / mid / last
@@ -550,10 +591,10 @@ def phase_main_path(device, args, native_exe, workdir):
 
 def phase_stages(model, window):
     """One resident window through the steps of ``FitWithinWindow.forward``,
-    stage by stage: host enqueue ms of each stage (host clock, no profiler,
-    no synchronize inside the pass), device ms of each stage (the kernels
-    ``torch.profiler`` attributes to it, in a second pass), and the number of
-    device operations in the window."""
+    stage by stage, on ``model``'s search route: host enqueue ms of each
+    stage (host clock, no profiler, no synchronize inside the pass), device
+    ms of each stage (the kernels ``torch.profiler`` attributes to it, in a
+    second pass), and the number of device operations in the window."""
     import contextlib
 
     import torch
@@ -561,7 +602,6 @@ def phase_stages(model, window):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from molar_tpu_torch.ops.measure import fit_rmsd
-    from molar_tpu_torch.ops.neighbor import within_mask_window
     from molar_tpu_torch.tasks.trajectory import decode_window_coords
 
     m = model
@@ -578,8 +618,7 @@ def phase_stages(model, window):
         transport, boxes, invs = window
         coords = stage("decode", decode_window_coords, transport)
         stage("fit_rmsd", fit_rmsd, coords[:, m.protein_idx], m.ref, m.masses)
-        masks, _ = stage("search", within_mask_window, coords, None, m.protein_idx, m.cutoff,
-                         boxes, invs, m.dims, m.cap, m.tgt_cap)
+        masks, _ = stage("search", m.masks, coords, boxes, invs)
         ids1 = torch.arange(1, coords.shape[1] + 1, device=coords.device)
         stage("checksum", lambda: (masks.sum(dim=1), (ids1 * masks).sum(dim=1) & 0xFFFFFFFF))
 
@@ -609,7 +648,8 @@ def phase_stages(model, window):
     if not ops or device_ms["search"] <= 0:
         raise AssertionError("the profiler saw no device work in the window's stages")
     frames = window[1].shape[0]
-    phase("stages", frames=frames, wall_ms=wall, host_enqueue_ms=sum(host_ms.values()),
+    phase("stages", route=m.search, frames=frames, wall_ms=wall,
+          host_enqueue_ms=sum(host_ms.values()),
           device_ms=sum(device_ms.values()), device_ops=len(ops),
           device_ops_per_frame=len(ops) / frames,
           host_ms=repr({k: round(v, 4) for k, v in host_ms.items()}),
@@ -619,73 +659,117 @@ def phase_stages(model, window):
 # ---------------------------------------------------------------- phase 6
 
 
-def phase_rows_vs_plain(device):
-    """The row kernel against ``_rows_stencil`` on the orthorhombic
-    full-PBC scenes (a 2-cell axis among them), then at the headline shape
-    (the main path's frame 0): the hit blocks, both times in turns plain /
-    kernel / kernel / plain, and the bound."""
+def _rows_window_equal(tag, call):
+    """One window through the row route on the card: the masks and flags of
+    ``within_mask_rows_window`` against ``plain=True`` (the plane twin) and
+    the ghost route, and the stencil kernel alone, tiled and a block per
+    cell, against its twin on the same cell records. ``call``: the window
+    search's arguments (coords, src, tgt, cutoff, boxes, invs, dims, cap,
+    tgt_cap). Returns (the stencil's arguments, its largest difference from
+    its twin)."""
     import torch
 
-    from molar_tpu_torch.ops.neighbor import _cutoff2, _search_args
-    from molar_tpu_torch.ops.neighbor_rows import (
-        _rows_inputs, _rows_stencil, within_mask_rows, within_rows,
-    )
+    from molar_tpu_torch.ops import neighbor_ghost as ng
+    from molar_tpu_torch.ops import neighbor_rows as nr
+    from molar_tpu_torch.ops.neighbor import _cutoff2, within_mask_window
 
-    from torch_scenes import ROW_SCENES
+    masks, ofl = nr.within_mask_rows_window(*call)
+    pmasks, pofl = nr.within_mask_rows_window(*call, plain=True)
+    gmasks, gofl = within_mask_window(*call)
+    if ofl.any() or pofl.any() or gofl.any():
+        raise AssertionError(f"{tag}: overflow (kernel {ofl.tolist()}, plain {pofl.tolist()})")
+    if not masks.any() or not torch.equal(masks, pmasks) or not torch.equal(masks, gmasks):
+        raise AssertionError(f"{tag}: masks differ ({int((masks != pmasks).sum())} from the "
+                             f"plane twin, {int((masks != gmasks).sum())} from the ghost route)")
+    coords, src, tgt, cutoff, boxes, invs, dims, cap, tcap = call
+    src_rec, tgt_rec, counts, _ = ng.cell_bins(coords, src, tgt, boxes, invs, dims, cap, tcap)
+    stencil = (src_rec, tgt_rec, counts, boxes, dims, cap, tcap, _cutoff2(cutoff), masks.shape[1])
+    twin = nr._rows_bins_stencil(*stencil)
+    err = 0
+    for cells in (nr.CELLS_PER_BLOCK, 1):
+        got = nr.within_rows(*stencil, cells_per_block=cells)
+        err = max(err, int((got.int() - twin.int()).abs().max()))
+        if err or not torch.equal(got, masks):
+            raise AssertionError(f"{tag}: stencil kernel ({cells} cells a block) != its twin "
+                                 f"on the same records ({int((got != twin).sum())} differ)")
+    return stencil, err
+
+
+def phase_rows_vs_plain(device):
+    """The per-pair min-image search against its plain twins: the row
+    scenes one frame each (ties and overflow among them), the row scenes
+    and the crowded one as windows, then the 16-frame headline window with
+    the kernel's, the twins' and the whole call's times in turns plain /
+    kernel / kernel / plain, and the bound. Returns the kernel's record."""
+    import torch
+
+    from molar_tpu_torch.ops import neighbor_rows as nr
+
+    from torch_scenes import ROW_SCENES, window
 
     def search(c, s, tg, cut, bm, bi, dims, pbc, cap, tcap, plain):
-        return within_mask_rows(c, s, tg, cut, bm, bi, dims, cap=cap, tgt_cap=tcap, plain=plain)
+        return nr.within_mask_rows(c, s, tg, cut, bm, bi, dims, cap=cap, tgt_cap=tcap,
+                                   plain=plain)
 
     checked = _scenes_vs_plain(device, "rows_vs_plain", ROW_SCENES, search)
-    c, tg, bm, bi, dims, cap, tcap = _headline_frame0(device)
-    call = (c, None, tg, CUTOFF, bm, bi, dims, (True,) * 3, cap, tcap)
-    mk, ok_ = search(*call, False)
-    mp, op_ = search(*call, True)
-    if bool(ok_) or bool(op_) or not torch.equal(mk, mp):
-        raise AssertionError("rows_vs_plain headline shape: kernel and plain disagree or overflow")
-    checked.append("headline")
-    src, tgt, lengths, *_ = _rows_inputs(c, None, tg, bm, bi, dims, cap, tcap)
-    inputs = (src, tgt, lengths, dims, cap, tcap, _cutoff2(CUTOFF))
-    max_err = int((within_rows(*inputs).int() - _rows_stencil(*inputs).int()).abs().max())
-    if max_err:
-        raise AssertionError("rows_vs_plain headline shape: stencil hit blocks differ")
-    times = {"plain": [], "kernel": [], "plain_call": [], "kernel_call": []}
-    for order in (("plain", "kernel"), ("kernel", "plain")):
-        for which in order:
-            if which == "kernel":
-                times["kernel"].append(_cuda_ms(lambda: within_rows(*inputs), 50))
-                times["kernel_call"].append(_cuda_ms(lambda: search(*call, False), 20))
-            else:
-                times["plain"].append(_cuda_ms(lambda: _rows_stencil(*inputs), 10))
-                times["plain_call"].append(_cuda_ms(lambda: search(*call, True), 10))
-    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    for name in ROW_SCENES + ["crowded"]:
+        coords, src, tgt, cutoff, boxes, invs, _, cap, dims = window(name)
+        d = [None if a is None else torch.as_tensor(a, device=device)
+             for a in (coords, src, tgt, boxes, invs)]
+        _rows_window_equal(f"rows_vs_plain window {name}",
+                           (*d[:3], cutoff, *d[3:], dims, cap, cap))
+        checked.append(f"window:{name}")
 
-    # What the kernel needs read once: the validity plane, x/y/z of the
-    # valid source slots, the four planes of the occupied target slots and
-    # one pad penalty a cell (it stops at a cell's first pad slot), the
-    # lengths; the hit blocks written once. ~22 FLOPs a candidate pair (3
-    # sub, 3 div, 3 rint, 3 mul, 3 sub for the image, 3 mul, 3 add with the
-    # penalty, 1 compare).
-    nx, ny, nz = dims
-    n_cells = nx * ny * nz
-    sa = _search_args(c, None, tg, bm, bi, dims)
-    scount = torch.bincount(sa[3].long(), minlength=n_cells).clamp(max=cap)
-    tcount = torch.bincount(((sa[7] * ny + sa[8]) * nz + sa[9]).long(),
-                            minlength=n_cells).clamp(max=tcap)
-    pairs = _pairs(scount, tcount, dims, cap, tcap)
-    nbytes = (src[3].numel() * 4 + int(scount.sum()) * 12 + int(tcount.sum()) * 16
-              + int((tcount < tcap).sum()) * 4 + lengths.numel() * 4 + n_cells * cap)
-    bound = _bound(nbytes, pairs * 22)
+    coords, tgt, boxes, invs, dims, cap, tcap = _headline_window(device)
+    call = (coords, None, tgt, CUTOFF, boxes, invs, dims, cap, tcap)
+    stencil, max_err = _rows_window_equal("rows_vs_plain headline window", call)
+    checked.append("headline_window")
+
+    tiles = sorted({1, 4, 8, 16, 32, nr.CELLS_PER_BLOCK})
+    runs = {k: [] for k in ("kernel", "plain", "call", "call_plain",
+                            *(f"cells_per_block_{t}" for t in tiles))}
+    for order in ((False, True), (True, False)):
+        for kernel in order:
+            if kernel:
+                runs["kernel"].append(_graph_ms(lambda: nr.within_rows(*stencil), 20))
+                for t in tiles:
+                    runs[f"cells_per_block_{t}"].append(
+                        _graph_ms(lambda: nr.within_rows(*stencil, cells_per_block=t), 20))
+                runs["call"].append(_graph_ms(lambda: nr.within_mask_rows_window(*call), 20))
+            else:
+                runs["plain"].append(_cuda_ms(lambda: nr._rows_bins_stencil(*stencil), 2))
+                runs["call_plain"].append(
+                    _cuda_ms(lambda: nr.within_mask_rows_window(*call, plain=True), 1))
+    ms = {k: float(np.mean(v)) for k, v in runs.items()}
+
+    # Bytes the stencil must move: every count, the source records of the
+    # live cells (a target in their 27-cell neighbourhood; the other sources
+    # keep the mask's zero), the occupied target records, the boxes, the
+    # mask. Operations: the kernel's own count a candidate pair.
+    counts = stencil[2]
+    pairs, live_src, occupied = _window_work(counts, dims, cap, tcap)
+    nbytes = ((live_src + occupied) * 16 + counts.numel() * 4 + boxes.numel() * 4
+              + WINDOW * ATOMS)
+    bound = _bound(nbytes, pairs * nr.FLOPS_PER_PAIR)
+    coord_bytes = coords.numel() * 4 + tgt.numel() * 8 + 2 * boxes.numel() * 4
+    whole_bound = _bound(coord_bytes + WINDOW * ATOMS + WINDOW, pairs * nr.FLOPS_PER_PAIR)
     phase("rows_vs_plain", scenes=len(checked), all_equal=True,
-          headline_shape=f"n={ATOMS},tgt={PROTEIN},dims={dims},cap={cap},tgt_cap={tcap}",
-          stencil_kernel_ms=ms["kernel"], stencil_plain_ms=ms["plain"],
-          call_kernel_ms=ms["kernel_call"], call_plain_ms=ms["plain_call"],
-          candidate_pairs=pairs, plane_bytes=nbytes, **bound,
-          stencil_kernel_ms_runs=repr([round(v, 5) for v in times["kernel"]]),
-          stencil_plain_ms_runs=repr([round(v, 4) for v in times["plain"]]),
+          window=f"frames={WINDOW},n={ATOMS},tgt={PROTEIN},dims={dims},cap={cap},tgt_cap={tcap}",
+          cells_per_block=nr.CELLS_PER_BLOCK, stencil_ms=ms["kernel"],
+          stencil_block_per_cell_ms=ms["cells_per_block_1"],
+          stencil_ms_by_cells_per_block=repr({t: round(ms[f"cells_per_block_{t}"], 5)
+                                              for t in tiles}),
+          stencil_plain_ms=ms["plain"],
+          call_ms=ms["call"], call_plain_ms=ms["call_plain"],
+          call_ms_per_frame=ms["call"] / WINDOW, candidate_pairs=pairs,
+          flops_per_pair=nr.FLOPS_PER_PAIR, live_sources=live_src, stencil_bytes=nbytes, **bound,
+          share_of_bound=bound["bound_ms"] / ms["kernel"],
+          **{f"call_{k}": v for k, v in whole_bound.items()},
+          runs_ms=repr({k: [round(x, 5) for x in v] for k, v in runs.items()}),
           names=",".join(checked))
     return {"max_abs_err": max_err, "ms": ms["kernel"], "plain_ms": ms["plain"], **bound,
-            "frames_per_launch": 1, "library_ms": None}
+            "block_per_cell_ms": ms["cells_per_block_1"], "frames_per_launch": WINDOW,
+            "library_ms": None}
 
 
 # ---------------------------------------------------------------- phases 7-8
@@ -753,8 +837,9 @@ def _launches() -> dict:
 
 
 def phase_rows_path(device, args, path, ghost, native_within0, ghost_model, ghost_window):
-    """The main path's trajectory through the row kernel (``search="rows"``),
-    and no host sync in a window of either route."""
+    """The main path's trajectory through the row route (``search="rows"``:
+    the binning kernel and the row kernel, once a window each), and no host
+    sync in a window of either route."""
     from molar_tpu_torch import convert, headline
     from molar_tpu_torch.core.pbc import PeriodicBox
     from molar_tpu_torch.ops.neighbor import grid_dims_for
@@ -779,12 +864,19 @@ def phase_rows_path(device, args, path, ghost, native_within0, ghost_model, ghos
     (ids, rmsd, count, check, retried), passes = _timed_passes(args.repeats, lambda: headline.run(
         path, ref, pmass, pidx, box, CUTOFF, dims, caps0, WINDOW, device, search="rows"))
     launches = _launches()
-    ghost_launches = launches["cell_bins"] + launches["within_ghost"]
-    launches = launches["within_rows"]
-    if ghost_launches or launches < args.repeats * args.frames:
-        raise AssertionError(f"rows path: {launches} row-kernel and {ghost_launches} ghost-kernel "
-                             f"launches for {args.repeats} x {args.frames} frames")
-    prof_wall, prof_busy, prof_top = _device_profile(lambda: [model(*w) for w in dev_windows])
+    n_windows = args.repeats * -(-args.frames // WINDOW)
+    if (launches["within_ghost"] or launches["cell_bins"] != launches["within_rows"]
+            or launches["within_rows"] < n_windows
+            or (not retried and launches["within_rows"] != n_windows)):
+        raise AssertionError(f"rows path: launches {launches} for {n_windows} windows "
+                             f"({retried} retried): expected one cell_bins and one within_rows "
+                             f"a window and no within_ghost")
+    prof_wall, prof_busy, prof_top, prof_ops = _device_profile(
+        lambda: [model(*w) for w in dev_windows])
+    plane_ops = [k for k in prof_ops
+                 if any(w in k for w in ("sort", "cummax", "scatter", "index_put"))]
+    if plane_ops:
+        raise AssertionError(f"rows path: plane-build operations on the card: {plane_ops}")
     gids, grmsd, gcount, gcheck = ghost
     if not np.array_equal(ids, gids):
         raise AssertionError("rows path: frame ids differ from the ghost path's")
@@ -801,13 +893,15 @@ def phase_rows_path(device, args, path, ghost, native_within0, ghost_model, ghos
           within0=int(count[0]), native_within0=native_within0,
           frames_differing_from_ghost=vs_ghost, rmsd_max_abs_diff_vs_ghost=rmsd_vs_ghost,
           parity_diff=parity, native_parity_diff=native_parity,
-          rmsd_max_abs_err_vs_cpu=rmsd_err, launches=launches, ghost_launches=ghost_launches,
-          no_sync_window=True, window_enqueue_ms=enqueue_ms, ghost_no_sync_window=True,
+          rmsd_max_abs_err_vs_cpu=rmsd_err, launches=launches,
+          launches_per_window=launches["within_rows"] / n_windows, device_op_names=len(prof_ops),
+          plane_build_ops=len(plane_ops), no_sync_window=True, window_enqueue_ms=enqueue_ms,
+          ghost_no_sync_window=True,
           ghost_window_enqueue_ms=ghost_enqueue_ms)
     if vs_ghost or parity or native_parity or rmsd_err > 1e-5:
         raise AssertionError(f"rows path parity failed: vs_ghost={vs_ghost} parity_diff={parity} "
                              f"native_parity_diff={native_parity} rmsd_err={rmsd_err}")
-    return launches
+    return launches["within_rows"], model, dev_windows[0]
 
 
 def phase_dodecahedron(device, workdir):
@@ -849,7 +943,7 @@ def phase_dodecahedron(device, workdir):
         raise AssertionError(f"dodecahedron stream returned frames {ids[:4]}... ({len(ids)})")
     if not (np.isfinite(rmsd).all() and (count > 0).all()):
         raise AssertionError("dodecahedron: non-finite RMSD or empty within set")
-    prof_wall, prof_busy, prof_top = _device_profile(
+    prof_wall, prof_busy, prof_top, _ = _device_profile(
         lambda: [model(*w) for w in dev_windows[:2]])
 
     parity, rmsd_err = _cpu_parity(path, (rmsd, count, check), ref, pmass, pidx, box, dims,
@@ -901,8 +995,9 @@ def main() -> int:
             device, args, native_exe, workdir)
         phase_stages(model, window)
         stats["within_rows"] = phase_rows_vs_plain(device)
-        launches["within_rows"] = phase_rows_path(
+        launches["within_rows"], rows_model, rows_window = phase_rows_path(
             device, args, os.path.join(workdir, "traj.xtc"), ghost, native_within0, model, window)
+        phase_stages(rows_model, rows_window)
         phase_dodecahedron(device, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

@@ -8,8 +8,9 @@ JAX nor ``molar_tpu``: the machine with the card has no JAX, and any
 Slice covered: the trajectory headline — XTC delta windows, on-device
 decode, mass-weighted Kabsch RMSD, and the PBC ``within`` search through the
 hand-written ghost-slab CUDA kernels (``csrc/cell_bin.cu`` and
-``csrc/within_ghost.cu``, two launches a window), the row kernel
-(``csrc/within_rows.cu``) or the triclinic correction path.
+``csrc/within_ghost.cu``, two launches a window), the per-pair min-image
+kernel over the same binning (``csrc/within_rows.cu``, two launches a
+window) or the triclinic correction path.
 """
 
 from . import config

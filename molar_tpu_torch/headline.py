@@ -8,9 +8,9 @@ against that selection, its count, and a uint32 membership checksum
 difference. The search takes one of three routes (:data:`SEARCHES`), fixed
 when the window function is built (:func:`convert.from_numpy` picks it from
 the box): the ghost-slab CUDA kernels (binning and stencil, once per
-window), the row-tiled per-pair min-image CUDA kernel (orthorhombic boxes,
-full PBC), or the triclinic correction path (any box, correction candidates
-from each frame's own box).
+window), the per-pair min-image CUDA kernel over the same binning (once per
+window; orthorhombic boxes, full PBC), or the triclinic correction path
+(any box, correction candidates from each frame's own box).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from . import convert
 from .io.xtc import XtcHandler
 from .ops.measure import fit_rmsd
 from .ops.neighbor import estimate_caps, within_mask, within_mask_window
-from .ops.neighbor_rows import within_mask_rows
+from .ops.neighbor_rows import within_mask_rows_window
 from .tasks.trajectory import TrajectoryReader, decode_window_coords, run_with_overflow_retry
 
 #: The search routes of :class:`FitWithinWindow`.
@@ -128,20 +128,18 @@ class FitWithinWindow(nn.Module):
     def masks(self, coords, boxes, invs):
         """Per-frame within masks of decoded ``coords`` (B, N, 3) against
         the selection -> (masks (B, N) bool, overflow (B,) bool). The ghost
-        route searches the whole window in one call; the others go frame by
-        frame."""
-        if self.search == "ghost":
-            return within_mask_window(coords, None, self.protein_idx, self.cutoff, boxes, invs,
-                                      self.dims, cap=self.cap, tgt_cap=self.tgt_cap)
-        corr = self.frame_corrections(boxes) if self.search == "corrections" else None
+        and row routes search the whole window in one call (two kernel
+        launches); the correction route goes frame by frame."""
+        if self.search != "corrections":
+            window = within_mask_window if self.search == "ghost" else within_mask_rows_window
+            return window(coords, None, self.protein_idx, self.cutoff, boxes, invs, self.dims,
+                          cap=self.cap, tgt_cap=self.tgt_cap)
+        corr = self.frame_corrections(boxes)
         masks, overflows = [], []
         for b in range(coords.shape[0]):
-            args = (coords[b], None, self.protein_idx, self.cutoff, boxes[b], invs[b])
-            if self.search == "rows":
-                mask, ofl = within_mask_rows(*args, self.dims, cap=self.cap, tgt_cap=self.tgt_cap)
-            else:
-                mask, ofl = within_mask(*args, corrections=corr[b], dims=self.dims, cap=self.cap,
-                                        tgt_cap=self.tgt_cap, max_tgt_cells=self.max_tgt_cells)
+            mask, ofl = within_mask(coords[b], None, self.protein_idx, self.cutoff, boxes[b],
+                                    invs[b], corrections=corr[b], dims=self.dims, cap=self.cap,
+                                    tgt_cap=self.tgt_cap, max_tgt_cells=self.max_tgt_cells)
             masks.append(mask)
             overflows.append(ofl)
         return torch.stack(masks), torch.stack(overflows)

@@ -18,10 +18,11 @@ of frames in two launches:
   through each source's list position; plain twin :func:`_bins_stencil`.
 
 Both are built by :mod:`molar_tpu_torch.build` and bound with ctypes (plain
-C entry points, pointers and the stream as ``c_void_p``). Each wrapper
-launches its kernel for CUDA tensors and never falls back: a build failure,
-a refused launch or an unsupported input raises. For CPU tensors, and only
-for them, it runs its plain twin. ``cell_bins.launches`` and
+C entry points, pointers and the stream as ``c_void_p``; :func:`_lib` also
+binds ``csrc/within_rows.cu``'s, which :mod:`.neighbor_rows` wraps). Each
+wrapper launches its kernel for CUDA tensors and never falls back: a build
+failure, a refused launch or an unsupported input raises. For CPU tensors,
+and only for them, it runs its plain twin. ``cell_bins.launches`` and
 ``within_ghost.launches`` count kernel launches and nothing else.
 
 :func:`_ghost_stencil` is the plain stencil over ghost-padded planes, the
@@ -70,6 +71,17 @@ def _lib() -> ctypes.CDLL:
         _int, _int,     # B, n_src
         _int, _int, _int, _int, _int,  # nx, ny, nz, cap, tgt_cap
         _int, _int, _int,  # pbc x, y, z
+        ctypes.c_float,  # cutoff^2
+        _vp,            # cudaStream_t
+    ]
+    lib.within_rows_launch.restype = _int
+    lib.within_rows_launch.argtypes = [
+        _vp, _vp, _vp,  # src_rec, tgt_rec, counts as cell_bin_launch leaves them
+        _vp,            # boxes (B, 3, 3) f32, diagonal
+        _vp,            # mask out (B, n_src) bool, zeroed
+        _int, _int,     # B, n_src
+        _int, _int, _int, _int, _int,  # nx, ny, nz, cap, tgt_cap
+        _int,           # cells per block
         ctypes.c_float,  # cutoff^2
         _vp,            # cudaStream_t
     ]

@@ -4,9 +4,11 @@ This file imports no JAX, so it runs where the card is. The ``cuda``-marked
 tests launch ``csrc/cell_bin.cu`` + ``csrc/within_ghost.cu`` (random
 scenes, cutoff ties, tiny and collapsed periodic grids, partial PBC, a
 small solvated protein, and windows of frames each in its own box) and
-``csrc/within_rows.cu`` (the orthorhombic full-PBC scenes plus the row
-kernel's own, one with a 2-cell axis), and require each mask, overflow
-flag and cell's member set to equal the plain twin's exactly; they also
+``csrc/cell_bin.cu`` + ``csrc/within_rows.cu`` (the orthorhombic full-PBC
+scenes plus the row search's own, one with a 2-cell axis, one frame and
+windows of frames each in its own box, in the tiled and the block-per-cell
+launch), and require each mask, overflow flag and cell's member set to
+equal the plain twin's exactly; they also
 hold the triclinic correction path (plain torch) on the card against the
 CPU on a rhombic dodecahedron, with host syncs made errors, and the RMSD
 fit against a float64 Kabsch with TF32 pinned off and deliberately on.
@@ -125,24 +127,41 @@ def test_rows_plain_twin_keeps_exact_ties(name):
     assert not ofl and got.tolist() == TIE_MEMBERS[name]
 
 
+def _rows_stencil_inputs(device, n_frames=2):
+    """random19's window binned on ``device`` -> the arguments of
+    ``within_rows`` up to ``c2``, and the number of sources."""
+    (coords, tgt, boxes, invs), dims, cap, _, c2 = _ghost_inputs(device, n_frames)
+    bins = neighbor_ghost.cell_bins(coords, None, tgt, boxes, invs, dims, cap, cap)
+    return (*bins[:3], boxes, dims, cap, cap, c2), coords.shape[1]
+
+
 def test_rows_wrapper_runs_plain_twin_on_cpu_tensors():
-    g = torch.Generator().manual_seed(4)
-    src = [torch.rand(4, 2, 4, generator=g) for _ in range(3)] + [torch.ones(4, 2, 4)]
-    tgt = [torch.rand(4, 2, 4, generator=g) for _ in range(3)] + [torch.zeros(4, 2, 4)]
-    lengths = torch.tensor([2.0, 2.0, 2.0])
+    args, n = _rows_stencil_inputs("cpu")
     before = neighbor_rows.within_rows.launches
-    got = neighbor_rows.within_rows(src, tgt, lengths, (2, 2, 2), 4, 4, 0.04)
-    want = neighbor_rows._rows_stencil(src, tgt, lengths, (2, 2, 2), 4, 4, 0.04)
+    got = neighbor_rows.within_rows(*args, n)
+    want = neighbor_rows._rows_bins_stencil(*args, n)
     assert neighbor_rows.within_rows.launches == before
     assert got.any() and not got.all() and torch.equal(got, want)
 
 
+def _rows_stencil_on_a_prefix(device):
+    args, n = _rows_stencil_inputs(device)
+    rows = neighbor_rows.within_rows
+    return rows(*args, n // 2), rows(*args, n)[:, : n // 2]
+
+
+def test_rows_stencil_twin_writes_only_positions_below_n_src():
+    part, want = _rows_stencil_on_a_prefix("cpu")
+    assert part.shape == want.shape and want.any() and torch.equal(part, want)
+
+
 def test_rows_wrapper_refuses_other_devices():
-    src = [torch.zeros(4, 2, 4, device="meta") for _ in range(4)]
-    lengths = torch.ones(3, device="meta")
+    recs = [torch.zeros(2, 120, 24, 4, device="meta") for _ in range(2)]
+    counts = torch.zeros(2, 2, 120, dtype=torch.int32, device="meta")
+    boxes = torch.ones(2, 3, 3, device="meta")
     before = neighbor_rows.within_rows.launches
     with pytest.raises(ValueError, match="CUDA"):
-        neighbor_rows.within_rows(src, src, lengths, (2, 2, 2), 4, 4, 0.25)
+        neighbor_rows.within_rows(*recs, counts, boxes, (4, 5, 6), 24, 24, 0.25, 900)
     assert neighbor_rows.within_rows.launches == before
 
 
@@ -245,10 +264,11 @@ def test_kernel_wrapper_rejects_bad_planes(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ROW_SCENES)
 def test_rows_kernel_matches_plain_on_card(cuda_device, name):
-    before = neighbor_rows.within_rows.launches
+    before = neighbor_ghost.cell_bins.launches, neighbor_rows.within_rows.launches
     got, ofl = _rows_search(name, cuda_device)
     torch.cuda.synchronize()
-    assert neighbor_rows.within_rows.launches == before + 1
+    assert neighbor_ghost.cell_bins.launches == before[0] + 1
+    assert neighbor_rows.within_rows.launches == before[1] + 1
     twin, tofl = _rows_search(name, cuda_device, plain=True)
     want, wofl = _rows_search(name, "cpu")
     assert ofl is tofl is wofl is False
@@ -267,19 +287,53 @@ def test_rows_kernel_overflow_flag_on_card(cuda_device, cap, tgt_cap):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ROW_SCENES + ["crowded"])
+def test_rows_window_on_card_matches_twins(cuda_device, name):
+    """A 4-frame window, each frame in its own box: masks and flags against
+    the plane twin and the ghost route; the stencil kernel, in the tiled and
+    the block-per-cell launch, against its record twin on the same records."""
+    coords, src, tgt, cutoff, boxes, invs, pbc, cap, dims = window(name)
+    d = [None if a is None else torch.as_tensor(a).to(cuda_device)
+         for a in (coords, src, tgt, boxes, invs)]
+    call = (*d[:3], cutoff, *d[3:], dims, cap, cap)
+    masks, ofl = neighbor_rows.within_mask_rows_window(*call)
+    twin, tofl = neighbor_rows.within_mask_rows_window(*call, plain=True)
+    ghost, _ = neighbor.within_mask_window(*call)
+    assert not ofl.any() and torch.equal(ofl, tofl)
+    assert masks.any() and torch.equal(masks, twin) and torch.equal(masks, ghost)
+    src_rec, tgt_rec, counts, _ = neighbor_ghost.cell_bins(*d, dims, cap, cap)
+    args = (src_rec, tgt_rec, counts, d[3], dims, cap, cap, neighbor._cutoff2(cutoff),
+            masks.shape[1])
+    assert torch.equal(neighbor_rows.within_rows(*args), masks)
+    assert torch.equal(neighbor_rows.within_rows(*args, cells_per_block=1), masks)
+    assert torch.equal(neighbor_rows._rows_bins_stencil(*args), masks)
+
+
+@pytest.mark.cuda
+def test_rows_stencil_kernel_writes_only_positions_below_n_src(cuda_device):
+    part, want = _rows_stencil_on_a_prefix(cuda_device)
+    assert part.shape == want.shape and want.any() and torch.equal(part, want)
+
+
+@pytest.mark.cuda
 def test_rows_kernel_wrapper_rejects_bad_planes(cuda_device):
-    src = [torch.zeros(4, 2, 4, device=cuda_device) for _ in range(4)]
-    lengths = torch.ones(3, device=cuda_device)
+    (src_rec, tgt_rec, counts, boxes, dims, cap, _, c2), n = _rows_stencil_inputs(cuda_device)
+    rows = neighbor_rows.within_rows
     with pytest.raises(ValueError, match="shape"):
-        neighbor_rows.within_rows(src, src, lengths, (2, 2, 2), 8, 4, 0.25)
+        rows(src_rec, tgt_rec, counts, boxes, dims, cap + 8, cap, c2, n)
     with pytest.raises(ValueError, match="shape"):
-        neighbor_rows.within_rows(src, src, lengths[:2], (2, 2, 2), 4, 4, 0.25)
+        rows(src_rec, tgt_rec, counts, boxes[:1], dims, cap, cap, c2, n)
     with pytest.raises(TypeError, match="float32"):
-        neighbor_rows.within_rows([s.double() for s in src], src, lengths, (2, 2, 2), 4, 4, 0.25)
+        rows(src_rec.double(), tgt_rec, counts, boxes, dims, cap, cap, c2, n)
+    with pytest.raises(TypeError, match="int32"):
+        rows(src_rec, tgt_rec, counts.long(), boxes, dims, cap, cap, c2, n)
     with pytest.raises(ValueError, match="contiguous"):
-        neighbor_rows.within_rows(
-            [torch.zeros(4, 4, 2, device=cuda_device).transpose(1, 2) for _ in range(4)], src,
-            lengths, (2, 2, 2), 4, 4, 0.25)
+        rows(src_rec.transpose(1, 2).contiguous().transpose(1, 2), tgt_rec, counts, boxes, dims,
+             cap, cap, c2, n)
+    with pytest.raises(ValueError, match="bad sizes"):
+        rows(src_rec, tgt_rec, counts, boxes, (0, 1, 1), cap, cap, c2, n)
+    with pytest.raises(ValueError, match="cells_per_block"):
+        rows(src_rec, tgt_rec, counts, boxes, dims, cap, cap, c2, n, cells_per_block=33)
 
 
 @pytest.mark.cuda

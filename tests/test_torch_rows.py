@@ -1,6 +1,8 @@
 """Port vs JAX package: the row-tiled per-pair min-image ``within`` search.
 
-On the CPU ``within_mask_rows`` runs the plain twin of ``csrc/within_rows.cu``.
+On the CPU ``within_mask_rows`` (a window of one of
+``within_mask_rows_window``) runs the plain plane twin of the route that
+``csrc/cell_bin.cu`` + ``csrc/within_rows.cu`` take on the card.
 Its mask must equal, exactly, ``within_mask_pallas`` in interpret mode (the
 TPU kernel it replaces) on that kernel's own scenes (seeds 11 and 3 at
 cutoffs 0.5 and 0.8, a grid with a 2-cell axis, an explicit source subset),
@@ -8,7 +10,9 @@ and the numpy host search on every orthorhombic full-PBC scene of
 ``torch_scenes.py``, cutoff ties included. The slice test streams a small
 orthorhombic XTC through ``FitWithinWindow(search="rows")`` and holds its
 masks (exactly) and RMSDs (to 1e-5) against a JAX-CPU window function that
-runs ``within_mask_pallas`` on the same windows.
+runs ``within_mask_pallas`` on the same windows; the window's masks must be
+the frame-by-frame ones, and ``run`` must retry overflowed windows on the
+row route to the ghost route's result.
 """
 
 import numpy as np
@@ -234,3 +238,42 @@ def test_rows_route_equals_ghost_route_through_run(ortho_system):
     for a, b in zip(ghost[:4], rows[:4]):
         np.testing.assert_array_equal(a, b)
     assert ghost[4] == rows[4] == 0
+
+
+def test_rows_window_masks_equal_frame_by_frame(ortho_system):
+    """``FitWithinWindow.masks`` searches the window in one call; every
+    frame must come out as ``within_mask_rows`` gives it alone."""
+    s = ortho_system
+    cap, tcap, _ = s["caps"]
+    model = convert.from_numpy(s["coords0"][s["pidx"]], s["masses"][s["pidx"]], s["pidx"],
+                               s["box"].matrix, CUTOFF, s["caps"], s["dims"], "cpu",
+                               search="rows")
+    window = next(iter(TrajectoryReader([s["path"]]).iter_windows(WINDOW, quantized="delta")))
+    transport, boxes, invs = convert.transport_to_torch(window, "cpu")
+    coords = decode_window_coords(transport)
+    masks, ofl = model.masks(coords, boxes, invs)
+    assert masks.shape == (WINDOW, N_ATOMS) and ofl.shape == (WINDOW,) and not ofl.any()
+    for f in range(WINDOW):
+        one, one_ofl = within_mask_rows(coords[f], None, model.protein_idx, CUTOFF, boxes[f],
+                                        invs[f], s["dims"], cap=cap, tgt_cap=tcap)
+        assert not bool(one_ofl) and one.any() and torch.equal(one, masks[f])
+
+
+def test_rows_route_retries_overflowed_windows_like_ghost(ortho_system):
+    """Tier-0 capacities that are too small: both routes retry every window
+    and end at the result of the run that never overflowed."""
+    s = ortho_system
+    cap0, tcap0, cells0 = headline.base_caps(s["path"], s["box"].inv, s["dims"], s["pidx"])
+    small = (cap0 // 3, tcap0 // 3, cells0)
+    assert headline.caps_for(*small, 0)[0] < cap0  # tier 0 must overflow
+
+    def run(caps0, search):
+        return headline.run(s["path"], s["coords0"][s["pidx"]], s["masses"][s["pidx"]], s["pidx"],
+                            s["box"], CUTOFF, s["dims"], caps0, WINDOW, "cpu", search=search)
+
+    want = run((cap0, tcap0, cells0), "rows")
+    rows, ghost = run(small, "rows"), run(small, "ghost")
+    assert want[4] == 0 and rows[4] == ghost[4] == N_FRAMES // WINDOW
+    for a, b, c in zip(want[:4], rows[:4], ghost[:4]):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
