@@ -10,8 +10,11 @@ the window into cells, then a 27-cell stencil, two launches a window) and
 the hand-written per-pair min-image CUDA kernel over the same binning (two
 launches a window too) on the headline's cubic box, and the triclinic
 correction path (plain torch) on a rhombic dodecahedron of the same density.
-Weights do not exist here; the systems and their trajectories are made from
-seeds. Phases, one line each on stdout:
+Then the four selection workloads (CA-RMSD, per-residue COM and gyration,
+protein-ligand contact lists, the three fused) stream a 50,000-atom solvated
+protein over windows that carry only their selections' rows. Weights do not
+exist here; the systems and their trajectories are made from seeds. Phases,
+one line each on stdout (the workloads a line each):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the CUDA kernels, the XTC codec and the native C++ reference,
@@ -57,12 +60,28 @@ seeds. Phases, one line each on stdout:
    brute force over the lattice images, no host sync inside a window
    (``torch.cuda.set_sync_debug_mode("error")`` over a window, and the
    window captured into a CUDA graph, whose replay equals the eager run),
-   fps and the device's busy share.
+   fps and the device's busy share;
+9. workloads path: ``benchmarks/workloads.py``'s system at its defaults
+   (50,000 atoms, a 4,000-atom protein, an 8 nm box, 0.4 nm contacts) over
+   1,024 frames, each workload through ``molar_tpu_torch.workloads.run``
+   (``TrajectoryReader`` -> ``WindowPipeline`` with the subset -> its
+   module) at the window ``auto_window`` picks: fps of 3 passes, host
+   enqueue and device ms of a window by stage, device operations a frame,
+   the top device operations, the device's busy share; the module on the
+   CPU against the card on the first, a middle and the last window (RMSD
+   within 1e-5, COM and gyration within 1e-5 relative, contact counts and
+   pair lists equal); no host sync inside a window (as in 8), which is the
+   test of the pair-list compaction (its time beside a ``nonzero_static``
+   a frame); no pair-list overflow and some contacts; then a sweep of the
+   window size on ``ca_rmsd`` and ``contacts`` (one line a size), and last
+   the single-core C++ program ``benchmarks/native_workloads.cpp`` on the
+   same file and sidecar, whose check scalars the card's must match within
+   2e-3 relative (it runs after the device passes, never beside them).
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: the ghost path must launch only the two ghost kernels,
 the rows path the binning kernel and the row kernel once a window each and
-never the ghost stencil, and the dodecahedron path none.
+never the ghost stencil, and the dodecahedron and workloads paths none.
 
 Any failure raises, and then the script exits non-zero without its last
 line. The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -73,7 +92,7 @@ device and imports no JAX.
 The system is ``bench.py``'s headline at its defaults and is not an option
 here: only the headline's frame count and number of timed passes are.
 
-Usage: python3 chip_smoke.py [--frames 256] [--repeats 5]
+Usage: python3 chip_smoke.py [--frames 256] [--repeats 3]
 """
 
 from __future__ import annotations
@@ -120,6 +139,25 @@ DODECA_FRAMES = 64
 DODECA_REPEATS = 3
 BRUTE_SAMPLE = 5000
 STAGES = ("decode", "fit_rmsd", "search", "checksum")
+# The workloads path: benchmarks/workloads.py's defaults (--atoms, --protein,
+# the 8 nm box), 1,024 frames, 3 timed passes a workload, and the window
+# sizes of the sweep.
+WL_ATOMS = 50_000
+WL_PROTEIN = 4_000
+WL_BOX = 8.0
+WL_FRAMES = 1024
+WL_REPEATS = 3
+WL_SWEEP = (16, 32, 64, 128, 256, 512)
+WL_STAGES = {"ca_rmsd": ("decode", "fit_rmsd"), "com_splits": ("decode", "com_gyration"),
+             "contacts": ("decode", "contacts"),
+             "fused": ("decode", "fit_rmsd", "com_gyration", "contacts")}
+# How each per-frame output of a workload's module is held against the CPU
+# run: "abs" within 1e-5, "rel" within 1e-5 relative, "equal".
+WL_OUTPUTS = {"ca_rmsd": (("rmsd", "abs"),),
+              "com_splits": (("com", "rel"), ("gyr", "rel")),
+              "contacts": (("count", "equal"), ("overflow", "equal")),
+              "fused": (("rmsd", "abs"), ("gyr", "rel"), ("count", "equal"),
+                        ("overflow", "equal"))}
 
 
 def phase(label: str, **fields) -> None:
@@ -168,12 +206,13 @@ def phase_build():
     t_kernel = time.perf_counter() - t0
     codec = build.build_codec()
     native = build.build_native_baseline()
+    native_wl = build.build_native_workloads()
     ptxas = " | ".join(
         line.strip() for line in log.splitlines() if "registers" in line or "spill" in line
     )
     phase("build", kernel_s=round(t_kernel, 3),
           total_s=round(time.perf_counter() - t0, 3),
-          artifacts=",".join(p.name for p in (lib, codec, native)), ptxas=repr(ptxas))
+          artifacts=",".join(p.name for p in (lib, codec, native, native_wl)), ptxas=repr(ptxas))
     return native
 
 
@@ -230,8 +269,8 @@ def _device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not e.name.startswith("stage:"))
     busy, end = 0, None
     for a, b in spans:
         if end is None or a > end:
@@ -240,11 +279,19 @@ def _device_profile(fn):
             busy, end = busy + (b - end), b
     if not spans:
         raise AssertionError("the profiler saw no device activity")
+    ops = _device_ops(prof)
+    return wall * 1e3, busy / 1e3, ops[:4], [k for k, _ in ops]
+
+
+def _device_ops(prof):
+    """The operations of a profiled run with device time of their own (raw
+    kernel names and stage ranges left out) -> [(name, self device ms)],
+    the largest first."""
     ops = sorted(((e.key, e.self_device_time_total) for e in prof.key_averages()
-                  if e.self_device_time_total > 0 and not e.key.startswith(("void ", "(anon"))),
+                  if e.self_device_time_total > 0
+                  and not e.key.startswith(("void ", "(anon", "stage:"))),
                  key=lambda kv: -kv[1])
-    top = [(k, round(v / 1e3, 3)) for k, v in ops[:4]]
-    return wall * 1e3, busy / 1e3, top, [k for k, _ in ops]
+    return [(k, round(v / 1e3, 4)) for k, v in ops]
 
 
 def _scenes_vs_plain(device, label, scenes, search):
@@ -589,6 +636,31 @@ def phase_main_path(device, args, native_exe, workdir):
 # ---------------------------------------------------------------- phase 5
 
 
+def _stage_device_ms(prof, last_pass_from=None):
+    """Device ms of a profiled pass by the ``stage:`` range each device
+    operation ran in ("outside" for none), and the number of device
+    operations. A stage's device work is what runs inside its range on the
+    device's timeline (one stream, so the ranges do not overlap). The
+    profiler ties no kernel launched through ctypes to a host-side range,
+    so the device-side ranges are the ones read. When the trace holds
+    several passes, ``last_pass_from`` names the stage a pass begins with:
+    only what ran from its last range on is read."""
+    from torch.autograd import DeviceType
+
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if last_pass_from is not None:
+        lo = max(e.time_range.start for e in device if e.name == f"stage:{last_pass_from}")
+        device = [e for e in device if e.time_range.start >= lo]
+    ranges = [(e.name[6:], e.time_range.start, e.time_range.end)
+              for e in device if e.name.startswith("stage:")]
+    ops = [e.time_range for e in device if not e.name.startswith("stage:")]
+    by_stage = {}
+    for tr in ops:
+        name = next((n for n, lo, hi in ranges if lo <= tr.start and tr.end <= hi), "outside")
+        by_stage[name] = by_stage.get(name, 0.0) + (tr.end - tr.start) / 1e3
+    return by_stage, len(ops)
+
+
 def phase_stages(model, window):
     """One resident window through the steps of ``FitWithinWindow.forward``,
     stage by stage, on ``model``'s search route: host enqueue ms of each
@@ -598,7 +670,6 @@ def phase_stages(model, window):
     import contextlib
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from molar_tpu_torch.ops.measure import fit_rmsd
@@ -633,25 +704,15 @@ def phase_stages(model, window):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         window_pass(True)
         torch.cuda.synchronize()
-    # A stage's device work is what runs inside its range on the device's
-    # timeline (one stream, so the ranges do not overlap). The profiler ties
-    # no kernel launched through ctypes to a host-side range, so the
-    # device-side ranges are the ones read.
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    ranges = [(e.name[6:], e.time_range.start, e.time_range.end)
-              for e in device if e.name.startswith("stage:")]
-    ops = [e.time_range for e in device if not e.name.startswith("stage:")]
-    device_ms = dict.fromkeys(STAGES + ("outside",), 0.0)
-    for tr in ops:
-        name = next((n for n, lo, hi in ranges if lo <= tr.start and tr.end <= hi), "outside")
-        device_ms[name] += (tr.end - tr.start) / 1e3
-    if not ops or device_ms["search"] <= 0:
+    by_stage, n_ops = _stage_device_ms(prof)
+    device_ms = {**dict.fromkeys(STAGES + ("outside",), 0.0), **by_stage}
+    if not n_ops or device_ms["search"] <= 0:
         raise AssertionError("the profiler saw no device work in the window's stages")
     frames = window[1].shape[0]
     phase("stages", route=m.search, frames=frames, wall_ms=wall,
           host_enqueue_ms=sum(host_ms.values()),
-          device_ms=sum(device_ms.values()), device_ops=len(ops),
-          device_ops_per_frame=len(ops) / frames,
+          device_ms=sum(device_ms.values()), device_ops=n_ops,
+          device_ops_per_frame=n_ops / frames,
           host_ms=repr({k: round(v, 4) for k, v in host_ms.items()}),
           stage_device_ms=repr({k: round(v, 4) for k, v in device_ms.items()}))
 
@@ -975,10 +1036,225 @@ def phase_dodecahedron(device, workdir):
                              f"brute_mismatch={brute_mismatch} rmsd_err={rmsd_err}")
 
 
+# ---------------------------------------------------------------- phase 9
+
+
+def _workload_window(model, window, stages):
+    """One resident window through a workload's module -> (wall ms, host
+    enqueue ms, device ms by stage, device operations, the three device
+    operations with the most self time). The host clock runs without the
+    profiler; the device times come from a later, profiled pass, in which
+    every one of ``stages`` must show device work."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    model(*window)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model(*window)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # A trace can lack the first device operations after the profiler
+        # starts (a dozen, when other profiles ran before in the process):
+        # a pass that is not read goes first.
+        model(*window)
+        torch.cuda.synchronize()
+        model(*window)
+        torch.cuda.synchronize()
+    by_stage, n_ops = _stage_device_ms(prof, last_pass_from=stages[0])
+    missing = [k for k in stages if by_stage.get(k, 0.0) <= 0]
+    if missing or by_stage.get("outside", 0.0) > 0.05 * sum(by_stage.values()):
+        raise AssertionError(f"stages {missing} have no device work in the trace: {by_stage}")
+    # Both passes are in the averages: halve them.
+    top = [(k, round(ms / 2, 4)) for k, ms in _device_ops(prof)[:3]]
+    return wall_ms, enqueue_ms, by_stage, n_ops, top
+
+
+def _workload_vs_cpu(name, model, cpu_model, dev_window, cpu_window):
+    """A window through the module on the card and on the CPU (the plain
+    path): every per-frame output as :data:`WL_OUTPUTS` says, and for the
+    workloads with contacts the pair lists themselves. Returns the largest
+    difference of each output."""
+    import torch
+
+    from molar_tpu_torch.ops.neighbor import _cutoff2, _dense_d2
+    from molar_tpu_torch.tasks.trajectory import decode_window_coords
+
+    lists = cpu_lists = None
+    if name == "contacts":
+        # Its forward is the decode and ``pairs(...)[2:]``: one search a side.
+        lists = model.pairs(decode_window_coords(dev_window[0]), *dev_window[1:])
+        cpu_lists = cpu_model.pairs(decode_window_coords(cpu_window[0]), *cpu_window[1:])
+        got, want = lists[2:], cpu_lists[2:]
+    else:
+        got, want = model(*dev_window), cpu_model(*cpu_window)
+    worst = {}
+    for (label, how), g, w in zip(WL_OUTPUTS[name], got, want):
+        g = g.cpu()
+        if how == "equal":
+            err = int((g != w).sum())
+        else:
+            err = (g - w).abs()
+            err = float((err / w.abs()).max() if how == "rel" else err.max())
+        worst[label] = err
+        if err > (0 if how == "equal" else 1e-5):
+            raise AssertionError(f"{name}: {label} differs from the CPU run by {err} ({how})")
+    if name in ("contacts", "fused"):
+        search, cpu_search = (m if name == "contacts" else m.contacts for m in (model, cpu_model))
+        coords, cpu_coords = decode_window_coords(dev_window[0]), decode_window_coords(cpu_window[0])
+        pairs, _, count, _ = lists or search.pairs(coords, *dev_window[1:])
+        cpu_pairs, _, cpu_count, _ = cpu_lists or cpu_search.pairs(cpu_coords, *cpu_window[1:])
+        pairs = pairs.cpu()
+        if not torch.equal(pairs, cpu_pairs):
+            # A pair at the cutoff tie is a wrong answer, not noise: show it.
+            f = int((pairs != cpu_pairs).any(dim=2).any(dim=1).nonzero()[0])
+            a = {tuple(p) for p in pairs[f, :int(count[f])].tolist()}
+            b = {tuple(p) for p in cpu_pairs[f, :int(cpu_count[f])].tolist()}
+            i, j = sorted(a ^ b)[0]
+            d2 = _dense_d2(coords[f:f + 1], search.src, search.tgt, dev_window[1][f:f + 1],
+                           dev_window[2][f:f + 1], None, (True,) * 3)
+            cpu_d2 = _dense_d2(cpu_coords[f:f + 1], cpu_search.src, cpu_search.tgt,
+                               cpu_window[1][f:f + 1], cpu_window[2][f:f + 1], None, (True,) * 3)
+            si, tj = int((cpu_search.src == i).nonzero()[0]), int((cpu_search.tgt == j).nonzero()[0])
+            raise AssertionError(
+                f"{name}: frame {f} of the window: pair ({i}, {j}) is in one list only: d2 on the "
+                f"card {float(d2[0, si, tj])!r}, on the CPU {float(cpu_d2[0, si, tj])!r}, "
+                f"cutoff^2 {_cutoff2(search.cutoff)!r}; {len(a ^ b)} pairs differ")
+        worst["pair_lists_differing"] = 0
+    return worst
+
+
+def _compaction_ms(model, dev_window):
+    """The pair-list compaction of one contacts window, alone: the port's
+    prefix sum and scatter over the whole window against one
+    ``torch.nonzero_static`` a frame (equal results), each as a CUDA-graph
+    replay -> (prefix-sum ms, nonzero_static ms)."""
+    import torch
+
+    from molar_tpu_torch.ops.neighbor import _compact, _cutoff2, _dense_d2
+    from molar_tpu_torch.tasks.trajectory import decode_window_coords
+
+    coords = decode_window_coords(dev_window[0])
+    hit = _dense_d2(coords, model.src, model.tgt, *dev_window[1:], None,
+                    (True,) * 3).flatten(1) <= _cutoff2(model.cutoff)
+
+    def per_frame():
+        return torch.stack([torch.nonzero_static(h, size=model.max_pairs, fill_value=-1)[:, 0]
+                            for h in hit])
+
+    if not torch.equal(_compact(hit, model.max_pairs), per_frame()):
+        raise AssertionError("the prefix-sum compaction differs from nonzero_static")
+    return (_graph_ms(lambda: _compact(hit, model.max_pairs), 10), _graph_ms(per_frame, 10))
+
+
+def phase_workloads(device, workdir):
+    """The four selection workloads at ``benchmarks/workloads.py``'s
+    defaults, then the window sweep, then the native C++ program."""
+    import torch
+
+    from molar_tpu_torch import convert
+    from molar_tpu_torch import workloads as wl
+    from molar_tpu_torch.tasks.trajectory import TrajectoryReader, auto_window
+
+    system = wl.synth_system(WL_ATOMS, WL_PROTEIN, WL_BOX)
+    path = os.path.join(workdir, "workloads.xtc")
+    t0 = time.perf_counter()
+    wl.write_xtc(system, path, WL_FRAMES)
+    t_write = time.perf_counter() - t0
+    meta = path + ".meta"
+    wl.write_native_meta(system, meta)
+
+    _reset_launches()
+    checks = {}
+    for name in wl.WORKLOADS:
+        model, subset = convert.workload_from_numpy(name, system, device)
+        cpu_model, _ = convert.workload_from_numpy(name, system, "cpu")
+        window = auto_window(path, subset)
+        t0 = time.perf_counter()
+        host_windows = list(TrajectoryReader([path]).iter_windows(window, quantized="delta",
+                                                                  subset=subset))
+        t_decode = time.perf_counter() - t0
+        wire_mb = sum(sum(a.nbytes for a in w[0]) if isinstance(w[0], tuple) else w[0].nbytes
+                      for w in host_windows) / 1e6
+        picks = sorted({0, len(host_windows) // 2, len(host_windows) - 1})
+        dev_windows = [convert.transport_to_torch(host_windows[k], device) for k in picks]
+        worst = {}
+        t0 = time.perf_counter()
+        for k, dev_window in zip(picks, dev_windows):
+            for label, err in _workload_vs_cpu(
+                    name, model, cpu_model, dev_window,
+                    convert.transport_to_torch(host_windows[k], "cpu")).items():
+                worst[label] = max(worst.get(label, 0), err)
+        t_vs_cpu = time.perf_counter() - t0
+        del host_windows
+        no_sync_enqueue_ms = _no_sync_window(model, dev_windows[0])
+        extra = {}
+        if name == "contacts":
+            extra["compact_prefix_sum_ms"], extra["compact_nonzero_static_ms"] = _compaction_ms(
+                model, dev_windows[0])
+
+        passes = []
+        for _ in range(WL_REPEATS):
+            frames, seconds, checks[name] = wl.run(name, system, path, window, device)
+            passes.append(frames / seconds)
+        if frames != WL_FRAMES or not all(np.isfinite(v) and v > 0
+                                          for v in checks[name].values()):
+            raise AssertionError(f"{name}: {frames} frames, check scalars {checks[name]}")
+        wall_ms, enqueue_ms, by_stage, n_ops, top = _workload_window(model, dev_windows[0],
+                                                                     WL_STAGES[name])
+        prof_wall, prof_busy, _, _ = _device_profile(lambda: [model(*w) for w in dev_windows[:2]])
+        n_win = dev_windows[0][1].shape[0]
+        phase("workload", name=name, atoms=WL_ATOMS, protein=WL_PROTEIN, rows=len(subset),
+              frames=frames, window=window, e2e_fps=[round(p, 3) for p in passes],
+              e2e_fps_best=max(passes), e2e_fps_median=float(np.median(passes)),
+              host_decode_s=t_decode, wire_mb=round(wire_mb, 3),
+              window_wall_ms=wall_ms, window_host_enqueue_ms=enqueue_ms,
+              window_device_ms=sum(by_stage.values()), device_ops=n_ops,
+              device_ops_per_frame=n_ops / n_win,
+              stage_device_ms=repr({k: round(v, 4) for k, v in by_stage.items()}),
+              top_device_ops=repr(top), profiled_wall_ms=prof_wall, device_busy_ms=prof_busy,
+              device_busy_share=prof_busy / prof_wall,
+              checks=repr({k: round(v, 7) for k, v in checks[name].items()}),
+              windows_vs_cpu=len(picks), max_diff_vs_cpu=repr(worst),
+              vs_cpu_s=round(t_vs_cpu, 3), no_sync_window=True,
+              no_sync_enqueue_ms=no_sync_enqueue_ms, **extra)
+        del model, dev_windows
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"the workloads path launched kernels {launches}")
+
+    # The window sweep that sets auto_window's constants.
+    for window in WL_SWEEP:
+        fields = {}
+        for name in ("ca_rmsd", "contacts"):
+            fps = []
+            for _ in range(WL_REPEATS):
+                frames, seconds, _ = wl.run(name, system, path, window, device)
+                fps.append(frames / seconds)
+            fields[f"{name}_fps_best"] = max(fps)
+            fields[f"{name}_fps_median"] = float(np.median(fps))
+        phase("auto_window_sweep", window=window, frames=WL_FRAMES, **fields)
+    torch.cuda.synchronize()
+
+    # The native program, after every device pass.
+    for name in wl.WORKLOADS:
+        native = wl.run_native(name, path, meta)
+        bad = wl.native_mismatches(checks[name], native)
+        phase("workload_native", name=name, native_fps=native["fps"], frames=native["frames"],
+              native_checks=repr({k: native[k] for k in checks[name]}),
+              checks=repr(checks[name]), rtol=wl.CHECK_RTOL, mismatches=len(bad))
+        if bad or native["frames"] != WL_FRAMES:
+            raise AssertionError(f"{name}: check scalars off the native program's: {bad}")
+    phase("workloads_path", workloads=len(checks), frames=WL_FRAMES, write_s=round(t_write, 3),
+          kernel_launches=launches, all_checks_passed=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=256)
-    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
 
     port = import_port()
@@ -999,6 +1275,7 @@ def main() -> int:
             device, args, os.path.join(workdir, "traj.xtc"), ghost, native_within0, model, window)
         phase_stages(rows_model, rows_window)
         phase_dodecahedron(device, workdir)
+        phase_workloads(device, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "molar_tpu"))

@@ -10,7 +10,10 @@ decode, mass-weighted Kabsch RMSD, and the PBC ``within`` search through the
 hand-written ghost-slab CUDA kernels (``csrc/cell_bin.cu`` and
 ``csrc/within_ghost.cu``, two launches a window), the per-pair min-image
 kernel over the same binning (``csrc/within_rows.cu``, two launches a
-window) or the triclinic correction path.
+window) or the triclinic correction path. And the selection workloads
+(``workloads``): CA-RMSD, per-residue COM and gyration, contact lists and
+the three fused, streamed over windows of the selections' rows, in plain
+torch (``ops.measure``, ``ops.neighbor.contact_pairs*``).
 """
 
 from . import config

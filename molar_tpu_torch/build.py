@@ -1,6 +1,6 @@
 """Build the port's native pieces from the repository's own sources.
 
-Three artifacts, each built at first use into ``build/molar_tpu_torch/``
+Four artifacts, each built at first use into ``build/molar_tpu_torch/``
 (listed in ``.gitignore``) and rebuilt when a source is newer:
 
 * ``libmolar_kernels.so`` — the CUDA kernels in ``csrc/*.cu``, each source
@@ -11,7 +11,11 @@ Three artifacts, each built at first use into ``build/molar_tpu_torch/``
   with ``g++`` (the codec is shared, not copied; nothing is imported from
   ``molar_tpu``);
 * ``native_baseline`` — ``benchmarks/native_baseline.cpp`` linked with the
-  codec: the single-core C++ reference of the headline workload.
+  codec: the single-core C++ reference of the headline workload;
+* ``native_workloads`` — ``benchmarks/native_workloads.cpp`` linked with the
+  codec: the single-core C++ reference of the selection workloads
+  (``native_workloads <which> <xtc> <meta> <max_frames> <dcd_out>``, one
+  JSON line a workload with ``fps`` and ``check``).
 
 Every build failure raises :class:`BuildError`. Outputs are written to a
 temporary name and renamed into place, so concurrent builds (test
@@ -34,6 +38,7 @@ KERNEL_SOURCES = [PKG_DIR / "csrc" / name
                   for name in ("cell_bin.cu", "within_ghost.cu", "within_rows.cu")]
 CODEC_SOURCE = REPO_DIR / "molar_tpu" / "native" / "xtc_codec.cpp"
 BASELINE_SOURCE = REPO_DIR / "benchmarks" / "native_baseline.cpp"
+WORKLOADS_SOURCE = REPO_DIR / "benchmarks" / "native_workloads.cpp"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -159,10 +164,20 @@ def build_codec() -> pathlib.Path:
     return out
 
 
-def build_native_baseline() -> pathlib.Path:
-    """The single-core C++ headline reference (``bench.py``'s denominator)."""
-    out = BUILD_DIR / "native_baseline"
-    srcs = [BASELINE_SOURCE, CODEC_SOURCE]
+def _build_native(name: str, source: pathlib.Path) -> pathlib.Path:
+    out = BUILD_DIR / name
+    srcs = [source, CODEC_SOURCE]
     if _stale(out, srcs):
         _compile([_gxx(), "-O3", "-std=c++17"], srcs, out)
     return out
+
+
+def build_native_baseline() -> pathlib.Path:
+    """The single-core C++ headline reference (``bench.py``'s denominator)."""
+    return _build_native("native_baseline", BASELINE_SOURCE)
+
+
+def build_native_workloads() -> pathlib.Path:
+    """The single-core C++ reference of the selection workloads
+    (``benchmarks/workloads.py``'s denominator, built with its flags)."""
+    return _build_native("native_workloads", WORKLOADS_SOURCE)

@@ -1,7 +1,7 @@
 """Carry the analysis inputs across from numpy to torch.
 
 The system has no weights: its "parameters" are the reference coordinates,
-masses, the selection, the box, the cutoff and the static grid sizes. Tests
+masses, the selections, the box, the cutoff and the static grid sizes. Tests
 build the JAX side and the torch side from the same numpy arrays through
 this module, and the window pipeline moves every window through
 :func:`transport_to_torch`.
@@ -71,3 +71,57 @@ def from_numpy(ref_coords, masses, protein_idx, box_matrix, cutoff, caps, dims, 
         search=search,
         max_tgt_cells=int(max_tgt_cells),
     ).to(device)
+
+
+def workload_from_numpy(name: str, system, device):
+    """Build the selection workload ``name`` (one of
+    ``molar_tpu_torch.workloads.WORKLOADS``) on ``device`` from a
+    :class:`~molar_tpu_torch.workloads.System` of numpy arrays -> (module,
+    subset): the module's buffers index the rows of ``subset``, the sorted
+    atom indices its windows ship."""
+    from . import workloads as wl
+    from .ops.measure import contiguous_segments_dense
+    from .ops.neighbor import grid_dims_for
+
+    if name not in wl.WORKLOADS:
+        raise ValueError(f"workload must be one of {tuple(wl.WORKLOADS)}, got {name!r}")
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), dtype=FLOAT)
+
+    def i64(a):
+        return torch.as_tensor(np.asarray(a, np.int64))
+
+    subset = {
+        "ca_rmsd": system.ca,
+        "com_splits": system.protein,
+        "contacts": np.concatenate([system.protein, system.ligand]),
+        "fused": np.unique(np.concatenate([system.ca, system.protein, system.ligand])),
+    }[name]
+
+    def rows(atoms):
+        return np.searchsorted(subset, atoms)
+
+    def ca_rmsd():
+        return wl.CaRmsd(f32(system.coords[system.ca]), f32(system.masses[system.ca]))
+
+    def com_splits():
+        idx, w, _ = contiguous_segments_dense(system.segment_ids, system.masses[system.protein])
+        return wl.ComSplits(i64(rows(system.protein)[idx]), f32(w))
+
+    def contacts():
+        # In "contacts" the ligand rows follow the protein rows, whatever
+        # their atom indices; in "fused" the union is sorted.
+        if name == "contacts":
+            n = len(system.protein)
+            src, tgt = np.arange(n), n + np.arange(len(system.ligand))
+        else:
+            src, tgt = rows(system.protein), rows(system.ligand)
+        return wl.Contacts(i64(src), i64(tgt), grid_dims_for(PeriodicBox(system.box), wl.CUTOFF),
+                           wl.CUTOFF, wl.MAX_PAIRS, wl.GRID_CAP)
+
+    if name == "fused":
+        model = wl.Fused(i64(rows(system.ca)), ca_rmsd(), com_splits(), contacts())
+    else:
+        model = {"ca_rmsd": ca_rmsd, "com_splits": com_splits, "contacts": contacts}[name]()
+    return model.to(device), subset

@@ -1,7 +1,7 @@
-"""Cell-grid ``within`` search with periodic images, in torch.
+"""Cell-grid ``within`` search and contact lists with periodic images, in torch.
 
-Counterpart of ``molar_tpu.ops.neighbor``'s ``within_mask``: points are
-wrapped into the unit cell and bucketed into fixed-capacity cells. Two
+Counterpart of ``molar_tpu.ops.neighbor``: points are wrapped into the unit
+cell and bucketed into fixed-capacity cells. ``within_mask`` has two
 regimes, as in the JAX package:
 
 * ``corrections is None`` — the ghost-slab search, for a window of frames
@@ -35,6 +35,17 @@ A skewed box's grid is sized from its perpendicular cell heights
 ``length / n`` is thinner than the cutoff when the box is skewed, and the
 +-1 stencil then misses pairs two cells apart.
 
+Contact lists (:func:`contact_pairs_dense`, :func:`contact_pairs` and their
+window forms) are fixed-capacity: ``(max_pairs, 2)`` int32 global indices
+padded with -1, distances (0 at padding), the true hit count (not clipped
+to ``max_pairs``) and an overflow flag, pair order implementation-defined.
+The dense form tests every source against every target; the grid form
+scans each source's 27 neighbour cells of a target :func:`cell_table`, by
+lattice shifts when the box is orthorhombic and every axis has 3 cells or
+more, by per-pair min-image otherwise. The hit table is compacted by a
+prefix sum and a scatter (:func:`_compact`), batched over the frames of a
+window: nothing waits on the host (``torch.nonzero`` would).
+
 The cutoff test is inclusive (d^2 <= cutoff^2, with cutoff^2 the f32 square
 of the f32 cutoff).
 """
@@ -49,12 +60,27 @@ import torch
 from .. import config  # noqa: F401  (pins fp32 matmuls)
 from .neighbor_ghost import _OFFSETS, _ghost_stencil, cell_bins, within_ghost
 
-__all__ = ["grid_dims", "grid_dims_for", "estimate_caps", "within_mask", "within_mask_window"]
+__all__ = [
+    "grid_dims",
+    "grid_dims_for",
+    "estimate_caps",
+    "cell_table",
+    "within_mask",
+    "within_mask_window",
+    "contact_pairs",
+    "contact_pairs_window",
+    "contact_pairs_dense",
+    "contact_pairs_dense_window",
+]
 
 # Pad-slot sentinels of the source and target planes. Opposite signs keep
 # pad-vs-pad differences far from zero; every d^2 stays finite in f32.
 SRC_PAD = -1e17
 TGT_PAD = 1e17
+
+# Elements of one distance block of the contact searches; a window is cut
+# into runs of frames that stay under it (2^25 f32 = 128 MiB a temporary).
+_BLOCK_ELEMS = 1 << 25
 
 
 def grid_dims(box_lengths, cutoff: float) -> tuple[int, int, int]:
@@ -102,11 +128,15 @@ def estimate_caps(coords, inv, dims, tgt_idx=None, margin: float = 1.2, round_to
 
 
 def _apply3(m, x, y, z):
-    """Componentwise ``m @ (x, y, z)`` for component planes."""
+    """Componentwise ``m @ (x, y, z)`` for component planes. ``m`` is one
+    (3, 3) matrix, or (B, 3, 3), one a frame, against planes whose first
+    axis is the frame."""
+    if m.dim() == 3:
+        m = m.reshape(m.shape[0], *([1] * (x.dim() - 1)), 3, 3)
     return (
-        m[0, 0] * x + m[0, 1] * y + m[0, 2] * z,
-        m[1, 0] * x + m[1, 1] * y + m[1, 2] * z,
-        m[2, 0] * x + m[2, 1] * y + m[2, 2] * z,
+        m[..., 0, 0] * x + m[..., 0, 1] * y + m[..., 0, 2] * z,
+        m[..., 1, 0] * x + m[..., 1, 1] * y + m[..., 1, 2] * z,
+        m[..., 2, 0] * x + m[..., 2, 1] * y + m[..., 2, 2] * z,
     )
 
 
@@ -138,6 +168,19 @@ def _bucket(flat, cap: int):
     rank = _rank_in_run(sorted_flat)
     overflow = (rank >= cap).any()
     return sorted_flat * cap + rank.clamp(max=cap - 1), order, overflow
+
+
+def cell_table(fx, fy, fz, dims: tuple[int, int, int], cap: int):
+    """Bucket points by the cell of their wrapped fractional coordinates ->
+    ((n_cells, cap) int32 member table padded with -1, overflow flag).
+    Members fill a cell's slots from 0 in index order; under overflow the
+    table is undefined."""
+    cx, cy, cz = _cell3(fx, fy, fz, dims)
+    n_cells = dims[0] * dims[1] * dims[2]
+    slot, order, overflow = _bucket((cx * dims[1] + cy) * dims[2] + cz, cap)
+    table = torch.full((n_cells * cap,), -1, dtype=torch.int32, device=fx.device)
+    table[slot] = order.to(torch.int32)
+    return table.view(n_cells, cap), overflow
 
 
 def _blocked_planes(values_list, flat, n_cells: int, cap: int, fill):
@@ -229,7 +272,9 @@ def _min_image_d2(dx, dy, dz, box, inv, corrections, pbc):
     the JAX package's order: inverse transform, round (half to even) on the
     periodic axes, forward transform, ``(x² + y²) + z²``; then, under full
     PBC, the minimum over the ``(K, 3)`` correction candidates (zero rows
-    are no-ops), taken in one broadcast over a trailing K axis."""
+    are no-ops), taken in one broadcast over a trailing K axis. ``box``,
+    ``inv`` and ``corrections`` may carry a leading frame axis
+    (:func:`_apply3`)."""
     fx, fy, fz = _apply3(inv, dx, dy, dz)
     if pbc[0]:
         fx = fx - torch.round(fx)
@@ -241,9 +286,12 @@ def _min_image_d2(dx, dy, dz, box, inv, corrections, pbc):
     d2 = sx * sx + sy * sy + sz * sz
     if corrections is None or not all(pbc):
         return d2
-    cx = sx[..., None] + corrections[:, 0]
-    cy = sy[..., None] + corrections[:, 1]
-    cz = sz[..., None] + corrections[:, 2]
+    if corrections.dim() == 3:
+        corrections = corrections.reshape(corrections.shape[0], *([1] * (sx.dim() - 1)),
+                                          *corrections.shape[1:])
+    cx = sx[..., None] + corrections[..., 0]
+    cy = sy[..., None] + corrections[..., 1]
+    cz = sz[..., None] + corrections[..., 2]
     return torch.minimum(d2, (cx * cx + cy * cy + cz * cz).amin(dim=-1))
 
 
@@ -274,12 +322,17 @@ def _cell_neighbor_ids(dims, pbc, device):
     flat, ok = _neighbor_cells(ids // (ny * nz), (ids // nz) % ny, ids % nz,
                                (o // 9 - 1, (o // 3) % 3 - 1, o % 3 - 1), dims, pbc)
     flat = torch.where(ok, flat, -1)
-    if min(dims) <= 2:
-        flat = flat.sort(dim=1).values
-        dup = torch.zeros_like(flat, dtype=torch.bool)
-        dup[:, 1:] = flat[:, 1:] == flat[:, :-1]
-        flat = torch.where(dup, -1, flat)
-    return flat
+    return _dedupe_small_grid(flat) if min(dims) <= 2 else flat
+
+
+def _dedupe_small_grid(nb_ids):
+    """(n, 27) neighbour ids -> each row sorted, its repeats set to -1 (on
+    a periodic axis of 1 or 2 cells different offsets reach the same
+    cell)."""
+    s = nb_ids.sort(dim=1).values
+    dup = torch.zeros_like(s, dtype=torch.bool)
+    dup[:, 1:] = s[:, 1:] == s[:, :-1]
+    return torch.where(dup, -1, s)
 
 
 def _occupied_cells(tflat, max_cells: int):
@@ -425,3 +478,222 @@ def within_mask(
         *_search_args(coords, src_idx, tgt_idx, box, inv, dims), box, inv, corrections, dims,
         cap, tgt_cap, pbc, _cutoff2(cutoff), max_tgt_cells)
     return _unsort_mask(hit, s_slot, s_order, n_src), ofl
+
+
+def _cells_shift(cx, cy, cz, off, dims, pbc, box):
+    """Neighbour cells at offsets ``off`` (three tensors broadcastable
+    against the cell coordinates) and the lab-frame lattice shift of each
+    neighbour's periodic image -> (flat cell ids (clipped), (shift x, y,
+    z), ok). With every point wrapped into the unit cell and cells no
+    smaller than the cutoff, the only image of a neighbour cell's contents
+    that can be in range is the one displaced by the wrap's lattice vector,
+    known per (cell, offset): it replaces the per-pair image math."""
+    ok = torch.ones_like(cx + off[0], dtype=torch.bool)
+    cs, ws = [], []
+    for c, o, n, per in zip((cx, cy, cz), off, dims, pbc):
+        c = c + o
+        if per:
+            w = (c >= n).to(c.dtype) - (c < 0).to(c.dtype)
+            c = c - w * n
+        else:
+            w = torch.zeros_like(c)
+            ok = ok & (c >= 0) & (c < n)
+            c = c.clamp(0, n - 1)
+        cs.append(c)
+        ws.append(w.to(box.dtype))
+    return (cs[0] * dims[1] + cs[1]) * dims[2] + cs[2], _apply3(box, *ws), ok
+
+
+def _search_core(coords, src_idx, tgt_idx, c2, box, inv, corrections, dims, cap, pbc):
+    """One frame of the grid contact search -> (hit (n_src, 27, cap) bool,
+    members (n_src, 27, cap) int32 target list positions (-1 at padding),
+    the target table's overflow flag, wrapped source planes, wrapped
+    target planes).
+
+    With ``corrections is None`` and 3 cells or more on every axis (no
+    offset aliases, the in-range image unique) all 27 offsets are taken in
+    one broadcast with the lattice shift of :func:`_cells_shift`; otherwise
+    offset by offset with the per-pair min-image of :func:`_min_image_d2`,
+    the neighbour ids deduplicated on tiny grids."""
+    sf = _wrap_frac(coords[src_idx], inv)
+    tf = _wrap_frac(coords[tgt_idx], inv)
+    sx, sy, sz = _apply3(box, *sf)
+    tx, ty, tz = _apply3(box, *tf)
+    table, overflow = cell_table(*tf, dims, cap)
+    cx, cy, cz = (c[:, None] for c in _cell3(*sf, dims))
+    o = torch.arange(27, device=coords.device)[None, :]
+    off = (o // 9 - 1, (o // 3) % 3 - 1, o % 3 - 1)
+
+    if corrections is None and min(dims) >= 3:
+        cells, (shx, shy, shz), ok = _cells_shift(cx, cy, cz, off, dims, pbc, box)
+        members = table[cells]
+        cand = members.clamp(min=0).long()
+        dx = tx[cand] + shx[..., None] - sx[:, None, None]
+        dy = ty[cand] + shy[..., None] - sy[:, None, None]
+        dz = tz[cand] + shz[..., None] - sz[:, None, None]
+        hit = ok[..., None] & (members >= 0) & (dx * dx + dy * dy + dz * dz <= c2)
+        return hit, members, overflow, (sx, sy, sz), (tx, ty, tz)
+
+    nb, ok = _neighbor_cells(cx, cy, cz, off, dims, pbc)
+    nb = torch.where(ok, nb, -1)
+    if min(dims) <= 2:
+        nb = _dedupe_small_grid(nb)
+    hits, mems = [], []
+    for k in range(27):
+        cells = nb[:, k]
+        members = table[cells.clamp(min=0)]
+        cand = members.clamp(min=0).long()
+        d2 = _min_image_d2(tx[cand] - sx[:, None], ty[cand] - sy[:, None],
+                           tz[cand] - sz[:, None], box, inv, corrections, pbc)
+        hits.append((cells >= 0)[:, None] & (members >= 0) & (d2 <= c2))
+        mems.append(members)
+    return torch.stack(hits, 1), torch.stack(mems, 1), overflow, (sx, sy, sz), (tx, ty, tz)
+
+
+def _compact(hit, size: int):
+    """The positions of the first ``size`` true entries of each row of
+    ``hit`` (B, M), ascending, padded with -1 -> (B, size) int64: what
+    ``nonzero(size=, fill_value=-1)`` gives row by row. A prefix sum ranks
+    the hits and a scatter writes each position to its rank (the others,
+    and the hits past ``size``, into a spare column that is cut off), so
+    the shape is fixed and nothing waits on the host."""
+    b, m = hit.shape
+    rank = torch.cumsum(hit, dim=1, dtype=torch.int32) - 1
+    dst = torch.where(hit & (rank < size), rank, size).long()
+    out = torch.full((b, size + 1), -1, dtype=torch.int64, device=hit.device)
+    out.scatter_(1, dst, torch.arange(m, device=hit.device).expand(b, m))
+    return out[:, :size]
+
+
+def _dense_d2(coords, src_idx, tgt_idx, boxes, invs, corrections, pbc):
+    """Squared min-image distance of every source to every target, frame by
+    frame -> (B, n_src, n_tgt). Both sets are wrapped into the unit cell
+    first (small displacements, one min-image step exact)."""
+    sx, sy, sz = _apply3(boxes, *_wrap_frac(coords[:, src_idx], invs))
+    tx, ty, tz = _apply3(boxes, *_wrap_frac(coords[:, tgt_idx], invs))
+    return _min_image_d2(tx[:, None, :] - sx[:, :, None], ty[:, None, :] - sy[:, :, None],
+                         tz[:, None, :] - sz[:, :, None], boxes, invs, corrections, pbc)
+
+
+def _frames_of(corrections, frames):
+    """The correction candidates of ``frames`` (a slice or an index): a
+    (K, 3) table serves every frame, a (B, K, 3) one is per frame."""
+    return corrections if corrections is None or corrections.dim() == 2 else corrections[frames]
+
+
+def contact_pairs_dense_window(
+    coords,
+    src_idx,
+    tgt_idx,
+    cutoff: float,
+    boxes,
+    invs,
+    corrections=None,
+    max_pairs: int = 1 << 16,
+    pbc=(True, True, True),
+):
+    """Fixed-capacity contact lists of a window through the direct
+    (n_src, n_tgt) distance matrix, no cell grid -> per frame (pairs (B,
+    max_pairs, 2) int32 global indices padded with -1, distances (B,
+    max_pairs), 0 at padding, count (B,) the true number of hits, overflow
+    (B,) = count > max_pairs). ``coords`` (B, N, 3); ``boxes``/``invs`` (B,
+    3, 3); ``corrections`` None, (K, 3) or (B, K, 3). The one to use when
+    n_src * n_tgt is small; nothing to size but ``max_pairs``. Pairs come
+    in ascending (source, target) list order. A long window is taken in
+    runs of frames whose distance block stays under :data:`_BLOCK_ELEMS`.
+    """
+    c2 = _cutoff2(cutoff)
+    n_tgt = tgt_idx.shape[0]
+    k = corrections.shape[-2] if corrections is not None and all(pbc) else 1
+    step = max(1, _BLOCK_ELEMS // max(1, src_idx.shape[0] * n_tgt * k))
+    runs = []
+    for lo in range(0, coords.shape[0], step):
+        run = slice(lo, lo + step)
+        d2 = _dense_d2(coords[run], src_idx, tgt_idx, boxes[run], invs[run],
+                       _frames_of(corrections, run), pbc).flatten(1)
+        hit = d2 <= c2
+        pos = _compact(hit, max_pairs)
+        ok = pos >= 0
+        safe = pos.clamp(min=0)
+        pairs = torch.stack([src_idx[safe // n_tgt], tgt_idx[safe % n_tgt]], dim=-1)
+        count = hit.sum(dim=1)
+        runs.append((torch.where(ok[..., None], pairs, -1).to(torch.int32),
+                     torch.where(ok, torch.sqrt(d2.gather(1, safe)), 0.0),
+                     count, count > max_pairs))
+    return runs[0] if len(runs) == 1 else tuple(torch.cat(x) for x in zip(*runs))
+
+
+def contact_pairs_dense(
+    coords,
+    src_idx,
+    tgt_idx,
+    cutoff: float,
+    box,
+    inv,
+    corrections=None,
+    max_pairs: int = 1 << 16,
+    pbc=(True, True, True),
+):
+    """One frame of :func:`contact_pairs_dense_window`: ``coords`` (N, 3),
+    ``box``/``inv`` (3, 3), ``corrections`` None or (K, 3) -> (pairs
+    (max_pairs, 2), distances (max_pairs,), count, overflow)."""
+    out = contact_pairs_dense_window(coords[None], src_idx, tgt_idx, cutoff, box[None],
+                                     inv[None], corrections, max_pairs, pbc)
+    return tuple(x[0] for x in out)
+
+
+def contact_pairs(
+    coords,
+    src_idx,
+    tgt_idx,
+    cutoff: float,
+    box,
+    inv,
+    corrections=None,
+    dims: tuple[int, int, int] = (1, 1, 1),
+    cap: int = 32,
+    max_pairs: int = 1 << 16,
+    pbc=(True, True, True),
+):
+    """Fixed-capacity contact list between two selections through the cell
+    grid, one frame -> (pairs (max_pairs, 2) int32 global indices padded
+    with -1, distances (max_pairs,), count, overflow = the target table
+    overflowed ``cap`` or count > max_pairs). ``dims`` from
+    :func:`grid_dims_for`. Pair order is implementation-defined; sort
+    before comparing across implementations."""
+    hit, mem, overflow, (sx, sy, sz), (tx, ty, tz) = _search_core(
+        coords, src_idx, tgt_idx, _cutoff2(cutoff), box, inv, corrections, dims, cap, pbc)
+    pos = _compact(hit.reshape(1, -1), max_pairs)[0]
+    ok = pos >= 0
+    safe = pos.clamp(min=0)
+    si = safe // (27 * cap)
+    mj = mem.reshape(-1)[safe].clamp(min=0).long()
+    d2 = _min_image_d2(tx[mj] - sx[si], ty[mj] - sy[si], tz[mj] - sz[si], box, inv,
+                       corrections, pbc)
+    pairs = torch.stack([src_idx[si], tgt_idx[mj]], dim=-1)
+    count = hit.sum()
+    return (torch.where(ok[:, None], pairs, -1).to(torch.int32),
+            torch.where(ok, torch.sqrt(d2), 0.0), count, overflow | (count > max_pairs))
+
+
+def contact_pairs_window(
+    coords,
+    src_idx,
+    tgt_idx,
+    cutoff: float,
+    boxes,
+    invs,
+    corrections=None,
+    dims: tuple[int, int, int] = (1, 1, 1),
+    cap: int = 32,
+    max_pairs: int = 1 << 16,
+    pbc=(True, True, True),
+):
+    """:func:`contact_pairs` over a window, frame by frame: ``coords`` (B,
+    N, 3), ``boxes``/``invs`` (B, 3, 3), ``corrections`` None, (K, 3) or
+    (B, K, 3) -> (pairs (B, max_pairs, 2), distances (B, max_pairs), count
+    (B,), overflow (B,))."""
+    frames = [contact_pairs(coords[f], src_idx, tgt_idx, cutoff, boxes[f], invs[f],
+                            _frames_of(corrections, f), dims, cap, max_pairs, pbc)
+              for f in range(coords.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*frames))

@@ -27,6 +27,17 @@ from ..io.xtc import XtcHandler
 # Windows decoded ahead of compute.
 _QUEUE_DEPTH = 2
 
+#: :func:`auto_window`'s defaults: the i8-delta wire bytes one window aims
+#: at, and the longest window it picks. From a sweep of the window size on
+#: an NVIDIA H100 80GB HBM3 (700 W; ``chip_smoke.py``, 1,024 frames of a
+#: 50,000-atom system): streams of 1,000 and of 4,050 rows both ran faster
+#: at every doubling from 16 to 512 frames (714 -> 4,507 and 807 -> 2,177
+#: frames/s, medians of 3 passes), so the cap is the longest window
+#: measured, and 6 MiB is what gives a 4,050-row stream that window while
+#: a 100,000-atom stream keeps 16 frames, the size it was measured at.
+AUTO_WINDOW_TARGET_BYTES = 6 << 20
+AUTO_WINDOW_MAX = 512
+
 
 class AnalysisError(RuntimeError):
     pass
@@ -148,6 +159,40 @@ def decode_window_coords(coords):
     return ints.to(torch.float32) * scale
 
 
+def auto_window(
+    path: str,
+    subset=None,
+    requested: int = 0,
+    target_bytes: int = AUTO_WINDOW_TARGET_BYTES,
+    max_window: int = AUTO_WINDOW_MAX,
+) -> int:
+    """Pick a window size for a delta-transport stream of the XTC ``path``.
+
+    ``requested`` > 0 wins unchanged. Otherwise the window grows until one
+    window's i8-delta wire (3 bytes x rows x frames, rows = ``len(subset)``
+    or every atom) reaches ``target_bytes``: a small selection's stream
+    pays a fixed host cost a window (enqueueing the window function), so
+    its windows should be long. At 16 frames and above the window is
+    rounded down to a multiple of 16 and clamped to ``max_window``; below
+    16 (huge frames) it falls in powers of two down to 1. Never longer than
+    the file. A path that is not an XTC raises, as :class:`TrajectoryReader`
+    does."""
+    if requested:
+        return requested
+    if not str(path).lower().endswith(".xtc"):
+        raise NotImplementedError(f"only XTC trajectories are ported: {path}")
+    with XtcHandler(str(path)) as h:
+        n_frames, n_atoms = h.n_frames, h.n_atoms
+    rows = n_atoms if subset is None else len(subset)
+    w = target_bytes // max(1, 3 * rows)
+    if w < 16:
+        p2 = 1
+        while p2 * 2 <= max(1, w):
+            p2 *= 2
+        return int(min(n_frames, p2))
+    return int(min(n_frames, max_window, w // 16 * 16))
+
+
 class WindowPipeline:
     """Decode thread + pinned H2D on a copy stream + compute.
 
@@ -156,15 +201,19 @@ class WindowPipeline:
     thread stages each window in pinned host memory and issues the copies
     ``non_blocking`` on a side stream, recording an event that the compute
     stream waits on; decode and H2D of window k+1 overlap compute of window
-    k. On a CPU ``device`` the windows are plain tensors.
+    k. On a CPU ``device`` the windows are plain tensors. ``subset`` (int
+    indices) ships only those atom rows, as
+    :meth:`TrajectoryReader.iter_windows` reads them.
     """
 
-    def __init__(self, reader, window: int, window_fn: Callable, device, quantized=False):
+    def __init__(self, reader, window: int, window_fn: Callable, device, quantized=False,
+                 subset=None):
         self.reader = reader
         self.window = window
         self.window_fn = window_fn
         self.device = torch.device(device)
         self.quantized = quantized
+        self.subset = subset
 
     def run(self):
         """Yield ``(frame_ids, results)`` per window, in stream order."""
@@ -185,7 +234,8 @@ class WindowPipeline:
 
         def feeder():
             try:
-                for item in self.reader.iter_windows(self.window, quantized=self.quantized):
+                for item in self.reader.iter_windows(self.window, quantized=self.quantized,
+                                                     subset=self.subset):
                     ready = None
                     if cuda:
                         with torch.cuda.stream(copy_stream):
@@ -240,6 +290,7 @@ def run_with_overflow_retry(
     overflow_of: Callable,
     n_tiers: int = 3,
     quantized=False,
+    subset=None,
 ):
     """Stream windows through ``build_fn(0)``; re-run overflowed windows at
     higher capacity tiers (the fixed-capacity + retry contract).
@@ -247,7 +298,8 @@ def run_with_overflow_retry(
     The pass never syncs per window: overflow flags stay on the device and
     are read with one device->host copy after the pass. Only flagged
     windows are re-read (by frame range, skip phase preserved) and re-run
-    at tiers 1.. until clean. An XTC window never spans two files, so the
+    at tiers 1.. until clean, with the same ``subset`` of atom rows. An XTC
+    window never spans two files, so the
     by-range re-read reproduces its frames exactly (``molar_tpu``'s
     per-frame re-read fallback serves its non-XTC readers, not ported).
     Raises :class:`AnalysisError` if the last tier still overflows. Returns
@@ -255,7 +307,8 @@ def run_with_overflow_retry(
     ``(frame_ids, result)`` in stream order.
     """
     fns = {0: build_fn(0)}
-    results = list(WindowPipeline(reader, window, fns[0], device, quantized=quantized).run())
+    results = list(WindowPipeline(reader, window, fns[0], device, quantized=quantized,
+                                  subset=subset).run())
     if not results:
         return results, 0
     flags = torch.stack([overflow_of(res).any() for _, res in results]).cpu().numpy()
@@ -269,7 +322,7 @@ def run_with_overflow_retry(
             sub = TrajectoryReader(
                 reader.paths, begin=int(ids[0]), end=int(ids[-1]), skip=reader.skip
             )
-            redo_in = list(sub.iter_windows(window, quantized=quantized))
+            redo_in = list(sub.iter_windows(window, quantized=quantized, subset=subset))
             if len(redo_in) != 1 or not np.array_equal(redo_in[0][4], ids):
                 raise AnalysisError(f"re-read of window {w} did not reproduce frames {ids}")
             res = fns[tier](*transport_to_torch(redo_in[0], device))

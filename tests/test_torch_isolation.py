@@ -2,8 +2,8 @@
 ``molar_tpu`` import reaches the JAX package's import-time pytree
 registration. A subprocess with both blocked imports every module of the
 port and runs the headline slice at a tiny size on the CPU, through the
-ghost and row routes and, on a rhombic dodecahedron, the correction path;
-a static scan finds no JAX or ``molar_tpu`` import in the port or in
+ghost and row routes and, on a rhombic dodecahedron, the correction path,
+and the four selection workloads over subset windows; a static scan finds no JAX or ``molar_tpu`` import in the port or in
 ``chip_smoke.py``.
 """
 
@@ -81,6 +81,22 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
                       np.float64) @ m.T.astype(np.float64)
     best = np.min([((dl + s) ** 2).sum(-1) for s in shifts], axis=0)
     assert tcount[2] == int((best <= cutoff**2).any(1).sum()), tcount
+    # The selection workloads, streamed over subset windows.
+    from molar_tpu_torch import workloads as wl
+    from molar_tpu_torch.tasks.trajectory import auto_window
+    for name in ("workloads", "ops.measure", "ops.neighbor", "tasks.trajectory", "convert",
+                 "build"):
+        assert "molar_tpu_torch." + name in sys.modules, name
+    s = wl.synth_system(1500, 300)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "w.xtc")
+        wl.write_xtc(s, path, 10)
+        assert auto_window(path, s.ca) == 10
+        got = {name: wl.run(name, s, path, 4, "cpu") for name in wl.WORKLOADS}
+    assert all(n == 10 for n, _, _ in got.values())
+    assert got["fused"][2]["check"] == got["ca_rmsd"][2]["check"] > 0
+    assert got["fused"][2]["check_com"] == got["com_splits"][2]["check"] > 0
+    assert got["fused"][2]["check_contacts"] == got["contacts"][2]["check"] > 0
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "molar_tpu")
               and sys.modules[m] is not None]
     assert not leaked, leaked
