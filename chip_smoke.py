@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``molar_tpu_torch``) on one NVIDIA GPU.
 
 Drives the trajectory headline through the port's own entry points: a
-100k-atom XTC streamed in i8 delta windows, each frame fitted (mass-weighted
+100k-atom XTC streamed in windows of raw i16 ints, each frame fitted (mass-weighted
 Kabsch RMSD of a 5k-atom "protein") and searched (0.5 nm periodic ``within``
 of every atom against the protein), through each of the port's three search
 routes: the hand-written ghost-slab CUDA kernels (a counting-sort binning of
@@ -12,27 +12,31 @@ launches a window too) on the headline's cubic box, and the triclinic
 correction path (plain torch) on a rhombic dodecahedron of the same density.
 Then the four selection workloads (CA-RMSD, per-residue COM and gyration,
 protein-ligand contact lists, the three fused) stream a 50,000-atom solvated
-protein over windows that carry only their selections' rows. Weights do not
-exist here; the systems and their trajectories are made from seeds. Phases,
-one line each on stdout (the workloads a line each):
+protein over windows that carry only their selections' rows, the host side
+of the stream is measured part by part, and the exact Lee-Richards SASA
+workload runs on the same system. Weights do not exist here; the systems
+and their trajectories are made from seeds. Phases, one line each on stdout
+(the workloads a line each):
 
-1. device: the card's name and power limit (``nvidia-smi``);
+1. device: the card's name and power limit (``nvidia-smi``), the host's
+   core count;
 2. build: the CUDA kernels, the XTC codec and the native C++ reference,
    from the sources in this checkout;
 3. ghost kernels vs plain: masks and overflow flags against the plain twin
    on the same CUDA tensors (exact equality) on the scenes of
    ``tests/torch_scenes.py`` (random, cutoff ties and their members, tiny
    and collapsed periodic grids, partial PBC, a crowded scene that needs
-   chunked staging) and an overflow scene; then a full 16-frame headline
+   chunked staging) and an overflow scene; then a full 64-frame headline
    window: the masks against the twin, the binning kernel's per-cell counts
    against ``torch.bincount`` and its per-cell members (positions and
    coordinates) against the plain plane build, the stencil kernel against
    its twin on the same cell records; each kernel's time, its twin's and its
    bound (bytes or operations, from this window's data);
-4. main path: write the trajectory, stream it with overflow retry, count
-   kernel launches, check frame 0 against the native C++ program and frames
-   0 / mid / last against the plain path run on the CPU, and report fps,
-   the host decode / H2D / device split and the device's busy share;
+4. main path: write the trajectory, stream it with overflow retry at the
+   window ``auto_window`` picks, count kernel launches, check frame 0
+   against the native C++ program and frames 0 / mid / last against the
+   plain path run on the CPU, and report fps, the host decode / H2D /
+   device split and the device's busy share;
 5. stages: one resident window, stage by stage (decode, fit_rmsd, search,
    checksum), host enqueue and device time of each stage and the number of
    device operations, for the ghost route and for the row route;
@@ -43,7 +47,7 @@ one line each on stdout (the workloads a line each):
    (chunked staging) as 4-frame windows, each frame in its own box, also
    against the ghost route's masks and, for the stencil kernel alone in its
    tiled and its block-per-cell launch, against its twin on the same cell
-   records; then the 16-frame headline window the same way, with the
+   records; then the 64-frame headline window the same way, with the
    kernel's time (both launches), its twin's, the whole call's and the
    bound (from this window's data). Kernel times are one CUDA-graph replay
    of many launches between two events, so that no host time is in them;
@@ -54,34 +58,59 @@ one line each on stdout (the workloads a line each):
    maximum or scatter among the device's operations; fps, the device's
    busy share and the kernels' launches;
 8. dodecahedron path: 100k atoms (a 5k-atom protein ball) in a rhombic
-   dodecahedron at 100 atoms/nm^3, 64 frames through the sparse-target
-   correction path with overflow retry: frames 0 / mid / last against the
-   CPU path, frame 0 on a seeded sample of 5,000 atoms against a float64
-   brute force over the lattice images, no host sync inside a window
-   (``torch.cuda.set_sync_debug_mode("error")`` over a window, and the
-   window captured into a CUDA graph, whose replay equals the eager run),
-   fps and the device's busy share;
+   dodecahedron at 100 atoms/nm^3, 64 frames in windows of 16 through the
+   sparse-target correction path with overflow retry: frames 0 / mid / last
+   against the CPU path, frame 0 on a seeded sample of 5,000 atoms against
+   a float64 brute force over the lattice images, no host sync inside a
+   window (``torch.cuda.set_sync_debug_mode("error")`` over a window, and
+   the window captured into a CUDA graph, whose replay equals the eager
+   run), fps and the device's busy share;
 9. workloads path: ``benchmarks/workloads.py``'s system at its defaults
    (50,000 atoms, a 4,000-atom protein, an 8 nm box, 0.4 nm contacts) over
-   1,024 frames, each workload through ``molar_tpu_torch.workloads.run``
-   (``TrajectoryReader`` -> ``WindowPipeline`` with the subset -> its
-   module) at the window ``auto_window`` picks: fps of 3 passes, host
-   enqueue and device ms of a window by stage, device operations a frame,
-   the top device operations, the device's busy share; the module on the
-   CPU against the card on the first, a middle and the last window (RMSD
-   within 1e-5, COM and gyration within 1e-5 relative, contact counts and
-   pair lists equal); no host sync inside a window (as in 8), which is the
-   test of the pair-list compaction (its time beside a ``nonzero_static``
-   a frame); no pair-list overflow and some contacts; then a sweep of the
-   window size on ``ca_rmsd`` and ``contacts`` (one line a size), and last
-   the single-core C++ program ``benchmarks/native_workloads.cpp`` on the
-   same file and sidecar, whose check scalars the card's must match within
-   2e-3 relative (it runs after the device passes, never beside them).
+   1,024 frames, each of the four workloads through
+   ``molar_tpu_torch.workloads.run`` (``TrajectoryReader`` ->
+   ``WindowPipeline`` with the subset -> its module) at the window
+   ``auto_window`` picks: fps of 3 passes, host enqueue and device ms of a
+   window by stage, device operations a frame, the top device operations,
+   the device's busy share; the module on the CPU against the card on the
+   first, a middle and the last window (RMSD within 1e-5, COM and gyration
+   within 1e-5 relative, contact counts and pair lists equal); no host
+   sync inside a window (as in 8), which is the test of the pair-list
+   compaction (its time beside a ``nonzero_static`` a frame); no pair-list
+   overflow and some contacts; then a sweep of the window size on
+   ``ca_rmsd`` and ``contacts`` (one line a size), and last the
+   single-core C++ program ``benchmarks/native_workloads.cpp`` on the same
+   file and sidecar, whose check scalars the card's must match within 2e-3
+   relative (it runs after the device passes, never beside them);
+10. host stream: what the shipped host-side settings rest on, each
+   compared inside this one process: the codec's decode threads (1 to every
+   core) on the headline file and on a subset stream; the three wire forms
+   (i8 deltas, raw i16, plain f32) in turns, decode alone and both streams
+   end to end, the headline's results equal under all three; the host ms
+   until a copy out of the pinned staging ring returns, beside ordinary
+   memory; the feeder's
+   and the consumer's host ms a window by part (``# feeder:`` lines) for
+   the headline at 16 and 64 frames and ``ca_rmsd`` at 16 and 512, and
+   at 16 also with the window function replayed from a CUDA graph (results
+   equal);
+   the headline's fps at windows of 16 to 128; the headline's cell
+   occupancies over the trajectory against the tier-0 caps frame 0 sizes;
+11. sasa path: the exact Lee-Richards SASA workload on phase 9's system,
+   64 frames (``benchmarks/workloads.py``'s default depth), 4,000 rows x 32
+   slices, lists rebuilt on the device every frame: the caps and the tier,
+   no overflow at tier 0, per-residue areas of the first and the last
+   window against the module on the CPU (2e-5 nm^2), the element budget of
+   a block swept, fps of 3 passes through ``workloads.run`` and by window
+   size, device ms a frame by stage, top device operations, host enqueue,
+   busy share, peak memory, no host sync inside a window (as in 8), the
+   bound of ``sasa`` from this run's neighbour triples and the share
+   reached; then ``native_workloads.cpp sasa`` on the same file and
+   sidecar: check within 2e-3.
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: the ghost path must launch only the two ghost kernels,
 the rows path the binning kernel and the row kernel once a window each and
-never the ghost stencil, and the dodecahedron and workloads paths none.
+never the ghost stencil, and the dodecahedron, workloads and sasa paths none.
 
 Any failure raises, and then the script exits non-zero without its last
 line. The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -124,18 +153,21 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 # bench.py's headline settings: --atoms, --protein, --box (nm), --cutoff (nm),
-# and the window its auto-sizing picks at 100k atoms.
+# and the window the port's ``auto_window`` picks at 100k atoms.
 ATOMS = 100_000
 PROTEIN = 5_000
 BOX = 10.0
 CUTOFF = 0.5
-WINDOW = 16
+WINDOW = 64
 # The dodecahedron path: image distance d with d^3 * sqrt(2)/2 = 1000 nm^3
 # (the headline's volume, so 100 atoms/nm^3; a grid of 18 x 18 x 15 cells
 # from the cell heights), 64 frames, 3 timed passes.
 DODECA_D = (1000.0 * np.sqrt(2.0)) ** (1 / 3)
 DODECA_DIMS = (18, 18, 15)
 DODECA_FRAMES = 64
+# The card bounds this path whatever the window: it keeps the 16 frames it
+# was first measured at (a 64-frame window would be the whole file).
+DODECA_WINDOW = 16
 DODECA_REPEATS = 3
 BRUTE_SAMPLE = 5000
 STAGES = ("decode", "fit_rmsd", "search", "checksum")
@@ -147,7 +179,7 @@ WL_PROTEIN = 4_000
 WL_BOX = 8.0
 WL_FRAMES = 1024
 WL_REPEATS = 3
-WL_SWEEP = (16, 32, 64, 128, 256, 512)
+WL_SWEEP = (16, 32, 64, 128, 256, 512, 1024)
 WL_STAGES = {"ca_rmsd": ("decode", "fit_rmsd"), "com_splits": ("decode", "com_gyration"),
              "contacts": ("decode", "contacts"),
              "fused": ("decode", "fit_rmsd", "com_gyration", "contacts")}
@@ -158,6 +190,13 @@ WL_OUTPUTS = {"ca_rmsd": (("rmsd", "abs"),),
               "contacts": (("count", "equal"), ("overflow", "equal")),
               "fused": (("rmsd", "abs"), ("gyr", "rel"), ("count", "equal"),
                         ("overflow", "equal"))}
+
+
+def _wire():
+    """The wire form the port's streams ship."""
+    from molar_tpu_torch.tasks import trajectory
+
+    return trajectory.WIRE
 
 
 def phase(label: str, **fields) -> None:
@@ -191,7 +230,8 @@ def phase_device(port):
     ).stdout.strip().splitlines()[device.index]
     print(smi, flush=True)
     phase("device", name=repr(name), count=torch.cuda.device_count(),
-          nvidia_smi=repr(smi), torch=torch.__version__, cuda=torch.version.cuda)
+          nvidia_smi=repr(smi), torch=torch.__version__, cuda=torch.version.cuda,
+          host_cpu_count=os.cpu_count(), host_cpus_usable=len(os.sched_getaffinity(0)))
     return device, name, smi
 
 
@@ -362,9 +402,9 @@ def _pairs(scount, tcount, dims, cap: int, tcap: int) -> int:
 
 
 def _headline_window(device):
-    """A full 16-frame headline window at tier-0 caps: frame 0 of the main
+    """A full headline window (:data:`WINDOW` frames) at tier-0 caps: frame 0 of the main
     path's system plus a seeded 0.02 nm random walk, as
-    ``headline.write_trajectory`` makes it -> (coords (16, N, 3), protein
+    ``headline.write_trajectory`` makes it -> (coords (WINDOW, N, 3), protein
     indices, boxes, invs (device tensors), dims, cap, tgt_cap)."""
     import torch
 
@@ -398,7 +438,7 @@ def _window_work(counts, dims, cap: int, tcap: int):
 
 def phase_kernel_vs_plain(device):
     """The two ghost kernels against their plain twins: every shared scene
-    through ``within_mask``, then a full 16-frame headline window through
+    through ``within_mask``, then a full headline window through
     each kernel and the whole window search. Returns the kernel records of
     both."""
     import torch
@@ -543,7 +583,7 @@ def phase_main_path(device, args, native_exe, workdir):
     from molar_tpu_torch import convert, headline
     from molar_tpu_torch.core.pbc import PeriodicBox
     from molar_tpu_torch.ops.neighbor import grid_dims_for
-    from molar_tpu_torch.tasks.trajectory import TrajectoryReader
+    from molar_tpu_torch.tasks.trajectory import TrajectoryReader, auto_window
 
     box = PeriodicBox(np.diag([BOX] * 3))
     coords0, masses = headline.make_system(ATOMS, PROTEIN, box.matrix)
@@ -555,11 +595,14 @@ def phase_main_path(device, args, native_exe, workdir):
     t_write = time.perf_counter() - t0
     dims = grid_dims_for(box, CUTOFF)
     caps0 = headline.base_caps(path, box.inv, dims, pidx)
+    if auto_window(path) != WINDOW:
+        raise AssertionError(f"auto_window picks {auto_window(path)} frames for the headline, "
+                             f"the smoke runs {WINDOW}")
 
-    # Host side alone: decode every delta window.
+    # Host side alone: decode every window.
     reader = TrajectoryReader([path])
     t0 = time.perf_counter()
-    windows = list(reader.iter_windows(WINDOW, quantized="delta"))
+    windows = list(reader.iter_windows(WINDOW, quantized=_wire()))
     t_decode = time.perf_counter() - t0
     wire_mb = sum(
         sum(a.nbytes for a in w[0]) if isinstance(w[0], tuple) else w[0].nbytes for w in windows
@@ -759,7 +802,7 @@ def _rows_window_equal(tag, call):
 def phase_rows_vs_plain(device):
     """The per-pair min-image search against its plain twins: the row
     scenes one frame each (ties and overflow among them), the row scenes
-    and the crowded one as windows, then the 16-frame headline window with
+    and the crowded one as windows, then the headline window with
     the kernel's, the twins' and the whole call's times in turns plain /
     kernel / kernel / plain, and the bound. Returns the kernel's record."""
     import torch
@@ -916,7 +959,7 @@ def phase_rows_path(device, args, path, ghost, native_within0, ghost_model, ghos
                                dims, device, search="rows")
     if model.search != "rows":
         raise AssertionError(f"the cubic box with search='rows' took route {model.search}")
-    windows = TrajectoryReader([path]).iter_windows(WINDOW, quantized="delta")
+    windows = TrajectoryReader([path]).iter_windows(WINDOW, quantized=_wire())
     dev_windows = [convert.transport_to_torch(next(windows), device) for _ in range(2)]
     enqueue_ms = _no_sync_window(model, dev_windows[0])
     ghost_enqueue_ms = _no_sync_window(ghost_model, ghost_window)
@@ -990,13 +1033,13 @@ def phase_dodecahedron(device, workdir):
     if model.search != "corrections":
         raise AssertionError(f"the dodecahedron took route {model.search}")
     dev_windows = [convert.transport_to_torch(w, device) for w in
-                   TrajectoryReader([path]).iter_windows(WINDOW, quantized="delta")]
+                   TrajectoryReader([path]).iter_windows(DODECA_WINDOW, quantized=_wire())]
     enqueue_ms = _no_sync_window(model, dev_windows[0])
 
     _reset_launches()
     (ids, rmsd, count, check, retried), passes = _timed_passes(
         DODECA_REPEATS, lambda: headline.run(path, ref, pmass, pidx, box, CUTOFF, dims,
-                                                  caps0, WINDOW, device))
+                                                  caps0, DODECA_WINDOW, device))
     kernel_launches = _launches()
     if any(kernel_launches.values()):
         raise AssertionError(f"the correction path launched kernels {kernel_launches}")
@@ -1021,7 +1064,7 @@ def phase_dodecahedron(device, workdir):
     t_brute = time.perf_counter() - t0
     brute_mismatch = int((mask0[sample] != want).sum())
     phase("dodecahedron_path", atoms=ATOMS, protein=PROTEIN, d_nm=DODECA_D, dims=dims,
-          frames=len(ids), window=WINDOW, caps_tier0=headline.caps_for(*caps0, 0),
+          frames=len(ids), window=DODECA_WINDOW, caps_tier0=headline.caps_for(*caps0, 0),
           e2e_fps=[round(p, 3) for p in passes], e2e_fps_best=max(passes),
           e2e_fps_median=float(np.median(passes)), windows_retried=retried,
           profiled_wall_ms=prof_wall, device_busy_ms=prof_busy,
@@ -1168,12 +1211,12 @@ def phase_workloads(device, workdir):
 
     _reset_launches()
     checks = {}
-    for name in wl.WORKLOADS:
+    for name in WL_STAGES:
         model, subset = convert.workload_from_numpy(name, system, device)
         cpu_model, _ = convert.workload_from_numpy(name, system, "cpu")
         window = auto_window(path, subset)
         t0 = time.perf_counter()
-        host_windows = list(TrajectoryReader([path]).iter_windows(window, quantized="delta",
+        host_windows = list(TrajectoryReader([path]).iter_windows(window, quantized=_wire(),
                                                                   subset=subset))
         t_decode = time.perf_counter() - t0
         wire_mb = sum(sum(a.nbytes for a in w[0]) if isinstance(w[0], tuple) else w[0].nbytes
@@ -1239,7 +1282,7 @@ def phase_workloads(device, workdir):
     torch.cuda.synchronize()
 
     # The native program, after every device pass.
-    for name in wl.WORKLOADS:
+    for name in WL_STAGES:
         native = wl.run_native(name, path, meta)
         bad = wl.native_mismatches(checks[name], native)
         phase("workload_native", name=name, native_fps=native["fps"], frames=native["frames"],
@@ -1249,6 +1292,400 @@ def phase_workloads(device, workdir):
             raise AssertionError(f"{name}: check scalars off the native program's: {bad}")
     phase("workloads_path", workloads=len(checks), frames=WL_FRAMES, write_s=round(t_write, 3),
           kernel_launches=launches, all_checks_passed=True)
+    return system, path, meta
+
+# ---------------------------------------------------------------- phase 10
+
+
+class _GraphWindow:
+    """A window function replayed from a CUDA graph: full-size windows are
+    copied into the captured inputs and replayed (the host enqueues a few
+    copies and one launch); any other window runs eagerly."""
+
+    def __init__(self, model, example):
+        import torch
+
+        self.model = model
+        self.static = tuple(tuple(x.clone() for x in a) if isinstance(a, tuple) else a.clone()
+                            for a in example)
+        model(*self.static)
+        torch.cuda.synchronize()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.outs = model(*self.static)
+        self.replays = 0
+
+    @staticmethod
+    def _flat(window):
+        for a in window:
+            yield from (a if isinstance(a, tuple) else (a,))
+
+    def __call__(self, *window):
+        mine, theirs = list(self._flat(self.static)), list(self._flat(window))
+        if len(mine) != len(theirs) or any(a.shape != b.shape or a.dtype != b.dtype
+                                           for a, b in zip(mine, theirs)):
+            return self.model(*window)
+        for a, b in zip(mine, theirs):
+            a.copy_(b)
+        self.graph.replay()
+        self.replays += 1
+        return tuple(o.clone() for o in self.outs)
+
+
+def _stream(path, window, fn, device, subset=None):
+    """One pass of a window function over a file through ``WindowPipeline``
+    -> (fps, the pipeline's host seconds by part, the per-window results)."""
+    import torch
+
+    from molar_tpu_torch.tasks.trajectory import TrajectoryReader, WindowPipeline
+
+    pipe = WindowPipeline(TrajectoryReader([path]), window, fn, device, quantized=_wire(),
+                          subset=subset)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [res for _, res in pipe.run()]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    frames = sum(len(o[0]) for o in outs)
+    return frames / seconds, dict(pipe.timings), outs
+
+
+def _decode_s(path, window, subset, repeats=3):
+    """Host seconds to read every window of a file (no device), best of
+    ``repeats``."""
+    from molar_tpu_torch.tasks.trajectory import TrajectoryReader
+
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in TrajectoryReader([path]).iter_windows(window, quantized=_wire(), subset=subset):
+            pass
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _per_window_ms(timings):
+    n = max(1, timings["windows"])
+    return {k: round(v / n * 1e3, 3) for k, v in timings.items() if k != "windows"}
+
+
+def phase_host_stream(device, args, headline_path, wl_system, wl_path):
+    """The host side of the window stream, measured on this machine: the
+    decode worker count, the wire form, the feeder's parts a window, CUDA
+    graph replay of the window function, the headline's window size, and
+    the headline's cell occupancies over the trajectory against its cap
+    tiers. Every comparison is made inside this one process."""
+    import torch
+
+    from molar_tpu_torch import convert, headline
+    from molar_tpu_torch import workloads as wl
+    from molar_tpu_torch.core.pbc import PeriodicBox
+    from molar_tpu_torch.io import xtc as io_xtc
+    from molar_tpu_torch.io.xtc import XtcHandler
+    from molar_tpu_torch.ops.neighbor import estimate_caps, grid_dims_for
+    from molar_tpu_torch.tasks import trajectory
+
+    box = PeriodicBox(np.diag([BOX] * 3))
+    coords0, masses = headline.make_system(ATOMS, PROTEIN, box.matrix)
+    pidx = np.arange(PROTEIN)
+    ref, pmass = coords0[pidx], masses[pidx]
+    dims = grid_dims_for(box, CUTOFF)
+    caps0 = headline.base_caps(headline_path, box.inv, dims, pidx)
+    ghost = convert.from_numpy(ref, pmass, pidx, box.matrix, CUTOFF, headline.caps_for(*caps0, 0),
+                               dims, device)
+    ca_model, ca_rows = convert.workload_from_numpy("ca_rmsd", wl_system, device)
+    com_model, com_rows = convert.workload_from_numpy("com_splits", wl_system, device)
+
+    def headline_fps(window, repeats=3):
+        out = None
+        fps = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            out = headline.run(headline_path, ref, pmass, pidx, box, CUTOFF, dims, caps0, window,
+                               device)
+            torch.cuda.synchronize()
+            fps.append(len(out[0]) / (time.perf_counter() - t0))
+        return float(np.median(fps)), out
+
+    # (a) Decode workers: the codec's threads a window, decode alone.
+    cores = os.cpu_count() or 1
+    shipped_workers = io_xtc.DECODE_WORKERS
+    by_workers = {}
+    try:
+        for workers in sorted({1, 2, 4, 8, 16, cores}):
+            io_xtc.DECODE_WORKERS = workers
+            by_workers[workers] = (round(_decode_s(headline_path, WINDOW, None), 4),
+                                   round(_decode_s(wl_path, 512, wl_system.protein), 4))
+    finally:
+        io_xtc.DECODE_WORKERS = shipped_workers
+    phase("decode_workers", host_cpu_count=cores, shipped=shipped_workers, wire=repr(_wire()),
+          headline=f"{args.frames} frames of {ATOMS} atoms, window {WINDOW}",
+          subset=f"{WL_FRAMES} frames of {len(wl_system.protein)} rows, window 512",
+          seconds_headline_subset_by_workers=repr(by_workers))
+
+    # (b) The wire form: decode alone, then both streams end to end. The
+    # results must not move: every form decodes to the same float32 frames.
+    shipped_wire = trajectory.WIRE
+    forms = ("delta", True, False)
+    samples = {form: {k: [] for k in ("decode_headline_s", "decode_subset_s", "headline_fps",
+                                      "com_splits_fps")} for form in forms}
+    results = {}
+    try:
+        for _ in range(3):  # the forms in turns, so that no form owns a quiet moment
+            for form in forms:
+                trajectory.WIRE = form
+                fps_h, results[form] = headline_fps(WINDOW, repeats=1)
+                got = samples[form]
+                got["headline_fps"].append(fps_h)
+                got["com_splits_fps"].append(_stream(wl_path, 512, com_model, device, com_rows)[0])
+                got["decode_headline_s"].append(_decode_s(headline_path, WINDOW, None, 1))
+                got["decode_subset_s"].append(_decode_s(wl_path, 512, com_rows, 1))
+    finally:
+        trajectory.WIRE = shipped_wire
+    by_wire = {form: {k: round(float(np.median(v)), 4) for k, v in got.items()}
+               for form, got in samples.items()}
+    results = {form: out[1:4] for form, out in results.items()}
+    moved = sum(int(not np.array_equal(a, b)) for form in (True, False)
+                for a, b in zip(results[form], results["delta"]))
+    phase("wire_forms", shipped=repr(shipped_wire), results_moved=moved, by_form=repr(by_wire))
+    if moved:
+        raise AssertionError("the headline's results differ between wire forms")
+
+    # The staging ring against ordinary memory: the host ms until a
+    # non_blocking copy of one headline window's bytes returns.
+    nbytes = WINDOW * ATOMS * trajectory.WIRE_BYTES[shipped_wire]
+    ring = trajectory.StagingRing(1, pin=True)
+    ring.begin()
+    sources = {"ring": ring((nbytes,), np.uint8), "pageable": np.empty(nbytes, np.uint8)}
+    start_ms = {}
+    for label, a in sources.items():
+        a[...] = 1
+        t = torch.from_numpy(a)
+        t.to(device, non_blocking=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            t.to(device, non_blocking=True)
+        start_ms[label] = round((time.perf_counter() - t0) / 5 * 1e3, 4)
+        torch.cuda.synchronize()
+    pinned = torch.from_numpy(sources["ring"]).is_pinned()
+    phase("staging", window_bytes=nbytes, ring_is_pinned=pinned, copy_start_ms=repr(start_ms))
+    if not pinned:
+        raise AssertionError("the staging ring's memory is not pinned")
+    del ring, sources
+
+    # (c) The feeder's and the consumer's parts a window, host clock.
+    # (d) The same streams with the window function replayed from a CUDA
+    # graph: does the decode thread get faster when the enqueueing thread
+    # holds the interpreter lock for microseconds a window?
+    for label, path, window, model, rows in (
+            ("headline", headline_path, 16, ghost, None),
+            ("headline", headline_path, WINDOW, ghost, None),
+            ("ca_rmsd", wl_path, 16, ca_model, ca_rows),
+            ("ca_rmsd", wl_path, 512, ca_model, ca_rows)):
+        _stream(path, window, model, device, rows)
+        eager = [_stream(path, window, model, device, rows) for _ in range(3)]
+        fps, timings, outs = sorted(eager, key=lambda r: r[0])[1]
+        phase("feeder", stream=label, window=window, wire=repr(_wire()), mode="eager",
+              fps_median=fps, windows=timings["windows"],
+              ms_per_window=repr(_per_window_ms(timings)))
+        if window != 16:
+            continue
+        example = convert.transport_to_torch(next(iter(
+            trajectory.TrajectoryReader([path]).iter_windows(window, quantized=_wire(),
+                                                             subset=rows))), device)
+        graphed = _GraphWindow(model, example)
+        _stream(path, window, graphed, device, rows)
+        replay = [_stream(path, window, graphed, device, rows) for _ in range(3)]
+        gfps, gtimings, gouts = sorted(replay, key=lambda r: r[0])[1]
+        same = all(torch.equal(a, b) for wa, wb in zip(outs, gouts) for a, b in zip(wa, wb))
+        phase("feeder", stream=label, window=window, wire=repr(_wire()), mode="graph_replay",
+              fps_median=gfps, windows=gtimings["windows"], replays=graphed.replays,
+              ms_per_window=repr(_per_window_ms(gtimings)), results_equal_eager=same,
+              decode_thread_s_eager=timings["decode"] + timings["pack"],
+              decode_thread_s_graph=gtimings["decode"] + gtimings["pack"])
+        if not same or not graphed.replays:
+            raise AssertionError(f"{label}: the graph-replayed stream differs from the eager one")
+        del graphed
+
+    # (e) The headline's window size.
+    by_window = {}
+    for window in (16, 32, 64, 128):
+        headline_fps(window, repeats=1)
+        fps, out = headline_fps(window)
+        by_window[window] = round(fps, 1)
+        # The fit's products round by the batch they run in; the sets do not move.
+        rmsd16, count16, check16 = results[shipped_wire]
+        if (np.abs(out[1] - rmsd16).max() > 1e-5 or not np.array_equal(out[2], count16)
+                or not np.array_equal(out[3], check16)):
+            raise AssertionError(f"headline window {window}: results differ from window {WINDOW}")
+    phase("headline_window_sweep", frames=args.frames, shipped=WINDOW,
+          fps_median_by_window=repr(by_window))
+
+    # (f) The headline's cell occupancies over the trajectory against the
+    # cap tiers that frame 0 sizes.
+    worst = np.zeros(3, np.int64)
+    with XtcHandler(headline_path) as h:
+        sampled = sorted({*range(0, h.n_frames, 8), h.n_frames - 1})
+        for k in sampled:
+            worst = np.maximum(worst, estimate_caps(h.read_frame(k).coords, box.inv, dims, pidx,
+                                                    margin=1.0, round_to=1))
+    tier0 = headline.caps_for(*caps0, 0)
+    phase("headline_caps", frame0=caps0, worst_of_sampled_frames=tuple(int(v) for v in worst),
+          frames_sampled=len(sampled), tier0=tier0,
+          margin_needed=repr(tuple(round(float(w) / c, 3) for w, c in zip(worst, caps0))),
+          tier0_holds=bool((worst <= np.array(tier0)).all()))
+
+
+# ---------------------------------------------------------------- phase 11
+
+# The interval and sweep arithmetic of one (atom, slice, neighbour) triple
+# of ``ops/sasa_lr._exposed_arcs``, counted from its code: the neighbour's
+# circle (6), the three placement tests (6), the half angle (10: products,
+# quotient, clip, arccos), the two interval ends and their wrap-split into
+# two slots (14), and the sweep over those two slots (12: running maximum,
+# maximum, difference, clamp, sum). The sort is not counted: a bound owes
+# the union, not a way to it.
+SASA_FLOPS_PER_TRIPLE = 48
+SASA_FRAMES = 64
+SASA_REPEATS = 3
+SASA_STAGES = ("decode", "lists", "sasa", "residues")
+# Per-residue areas, the card against the CPU, nm^2: both are float32;
+# ``atan2`` and ``acos`` differ by ulps between the two, over 4 atoms.
+SASA_ATOL = 2e-5
+
+
+def phase_sasa(device, workdir, system, meta):
+    """The SASA workload on phase 9's system: 64 frames (the reference's
+    default depth), 4,000 rows x 32 slices, lists rebuilt every frame."""
+    import torch
+
+    from molar_tpu_torch import convert
+    from molar_tpu_torch import workloads as wl
+    from molar_tpu_torch.ops import sasa_lr
+    from molar_tpu_torch.tasks.trajectory import TrajectoryReader, decode_window_coords
+
+    path = os.path.join(workdir, "sasa.xtc")
+    wl.write_xtc(system, path, SASA_FRAMES)
+    model, subset = convert.workload_from_numpy("sasa", system, device)
+    cpu_model, _ = convert.workload_from_numpy("sasa", system, "cpu")
+    window = wl.SASA_WINDOW
+    host_windows = list(TrajectoryReader([path]).iter_windows(window, quantized=_wire(),
+                                                              subset=subset))
+    dev_windows = [convert.transport_to_torch(w, device) for w in host_windows]
+
+    # The whole stream at tier 0: no overflow, and the per-frame results.
+    _reset_launches()
+    outs = [model(*w) for w in dev_windows]
+    areas = torch.cat([o[0] for o in outs])
+    overflowed = int(torch.cat([o[1] for o in outs]).sum())
+    if overflowed or areas.shape != (SASA_FRAMES, len(subset) // 4):
+        raise AssertionError(f"sasa: {overflowed} frames overflow tier 0, areas {areas.shape}")
+
+    # The card against the CPU on the first and the last window.
+    t0 = time.perf_counter()
+    worst = 0.0
+    for k in (0, len(host_windows) - 1):
+        want, want_ofl = cpu_model(*convert.transport_to_torch(host_windows[k], "cpu"))
+        worst = max(worst, float((outs[k][0].cpu() - want).abs().max()))
+        if want_ofl.any():
+            raise AssertionError("sasa: the CPU run overflows tier 0")
+    t_vs_cpu = time.perf_counter() - t0
+    if worst > SASA_ATOL:
+        raise AssertionError(f"sasa: per-residue areas differ from the CPU run by {worst} nm^2")
+
+    # The element budget of a block: one resident window at each.
+    shipped_block = sasa_lr.BLOCK_ELEMS
+    by_block = {}
+    try:
+        for log2 in (24, 25, 26, 27, 28, 29):
+            sasa_lr.BLOCK_ELEMS = 1 << log2
+            torch.cuda.reset_peak_memory_stats()
+            ms = _cuda_ms(lambda: model(*dev_windows[0]), 2)
+            by_block[log2] = (round(ms / window, 3),
+                              round(torch.cuda.max_memory_allocated() / 2**30, 2))
+    finally:
+        sasa_lr.BLOCK_ELEMS = shipped_block
+    phase("sasa_block_sweep", shipped_log2=shipped_block.bit_length() - 1, window=window,
+          ms_per_frame_and_peak_gib_by_log2_elems=repr(by_block))
+
+    # Timed passes through the user's entry point, then the window size.
+    passes, checks = [], None
+    for _ in range(SASA_REPEATS):
+        frames, seconds, checks = wl.run("sasa", system, path, 0, device)
+        passes.append(frames / seconds)
+    if frames != SASA_FRAMES or not np.isfinite(checks["check"]) or checks["check"] <= 0:
+        raise AssertionError(f"sasa: {frames} frames, check {checks}")
+    by_window = {w: round(float(np.median([f / s for f, s, _ in (
+        wl.run("sasa", system, path, w, device) for _ in range(SASA_REPEATS))])), 2)
+        for w in (4, 8, 16, 32, 64)}
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"the sasa path launched kernels {launches}")
+
+    torch.cuda.reset_peak_memory_stats()
+    wall_ms, enqueue_ms, by_stage, n_ops, top = _workload_window(model, dev_windows[0],
+                                                                 SASA_STAGES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    prof_wall, prof_busy, _, _ = _device_profile(lambda: [model(*w) for w in dev_windows[:2]])
+    # No host sync in a window: a short one, so that the graph's private
+    # pool stays small.
+    short = convert.transport_to_torch(next(iter(TrajectoryReader([path]).iter_windows(
+        2, quantized=_wire(), subset=subset))), device)
+    no_sync_enqueue_ms = _no_sync_window(model, short)
+    if not torch.allclose(model(*short)[0], areas[:2], rtol=0, atol=1e-6):
+        raise AssertionError("sasa: a 2-frame window differs from the stream's first frames")
+
+    # The bound of ``sasa`` (lists in, areas out) and of the whole window
+    # function (rows in, per-residue areas out) from this window's data:
+    # operations a triple over the triples the lists really hold.
+    coords = decode_window_coords(dev_windows[0][0])
+    nbr, _ = sasa_lr.neighbor_lists_device(coords, model.radii, model.extents, model.dims,
+                                           model.cell_cap, model.k_cap)
+    pairs = int((nbr >= 0).sum())
+    triples = pairs * model.n_slices
+    sasa_ms = _cuda_ms(lambda: sasa_lr.sasa(coords, model.radii, nbr, n_slices=model.n_slices), 2)
+    lists_ms = _cuda_ms(lambda: sasa_lr.neighbor_lists_device(
+        coords, model.radii, model.extents, model.dims, model.cell_cap, model.k_cap), 2)
+    bound = _bound(coords.numel() * 4 + model.radii.numel() * 4 + nbr.numel() * 4
+                   + coords.numel() // 3 * 4, triples * SASA_FLOPS_PER_TRIPLE)
+    whole = _bound(coords.numel() * 4 + model.radii.numel() * 4 + areas[:window].numel() * 4,
+                   triples * SASA_FLOPS_PER_TRIPLE)
+    del nbr, coords
+
+    phase("sasa_path", atoms=WL_ATOMS, rows=len(subset), slices=model.n_slices,
+          frames=SASA_FRAMES, window=window, wire=repr(_wire()), dims=model.dims,
+          k0=model.k0, cell0=model.cell0, k_cap=model.k_cap, cell_cap=model.cell_cap, tier=0,
+          frames_overflowed_tier0=overflowed,
+          e2e_fps=[round(p, 3) for p in passes], e2e_fps_best=max(passes),
+          e2e_fps_median=float(np.median(passes)), fps_median_by_window=repr(by_window),
+          window_wall_ms=wall_ms, window_host_enqueue_ms=enqueue_ms,
+          window_device_ms=sum(by_stage.values()),
+          device_ms_per_frame=sum(by_stage.values()) / window,
+          stage_device_ms_per_frame=repr({k: round(v / window, 4) for k, v in by_stage.items()}),
+          device_ops_per_frame=n_ops / window, top_device_ops=repr(top),
+          profiled_wall_ms=prof_wall, device_busy_ms=prof_busy,
+          device_busy_share=prof_busy / prof_wall, peak_memory_gib=round(peak_gib, 3),
+          windows_vs_cpu=2, max_abs_diff_vs_cpu=worst, atol=SASA_ATOL,
+          vs_cpu_s=round(t_vs_cpu, 3), no_sync_window=True,
+          no_sync_enqueue_ms=no_sync_enqueue_ms,
+          neighbour_pairs_per_frame=pairs / window, triples_per_frame=triples / window,
+          flops_per_triple=SASA_FLOPS_PER_TRIPLE, sasa_ms_per_frame=sasa_ms / window,
+          lists_ms_per_frame=lists_ms / window,
+          sasa_bound_ms_per_frame=bound["bound_ms"] / window, sasa_bound_by=bound["bound_by"],
+          sasa_share_of_bound=bound["bound_ms"] / sasa_ms,
+          window_fn_bound_ms_per_frame=whole["bound_ms"] / window,
+          window_fn_share_of_bound=whole["bound_ms"] / sum(by_stage.values()),
+          check=checks["check"], kernel_launches=launches)
+
+    # The native program on the same file and sidecar, after every device pass.
+    native = wl.run_native("sasa", path, meta)
+    bad = wl.native_mismatches(checks, native)
+    phase("workload_native", name="sasa", native_fps=native["fps"], frames=native["frames"],
+          native_checks=repr({k: native[k] for k in checks}), checks=repr(checks),
+          rtol=wl.CHECK_RTOL, mismatches=len(bad))
+    if bad or native["frames"] != SASA_FRAMES:
+        raise AssertionError(f"sasa: check scalar off the native program's: {bad}")
 
 
 def main() -> int:
@@ -1275,7 +1712,9 @@ def main() -> int:
             device, args, os.path.join(workdir, "traj.xtc"), ghost, native_within0, model, window)
         phase_stages(rows_model, rows_window)
         phase_dodecahedron(device, workdir)
-        phase_workloads(device, workdir)
+        wl_system, wl_path, wl_meta = phase_workloads(device, workdir)
+        phase_host_stream(device, args, os.path.join(workdir, "traj.xtc"), wl_system, wl_path)
+        phase_sasa(device, workdir, wl_system, wl_meta)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "molar_tpu"))

@@ -16,30 +16,30 @@ from .config import FLOAT
 from .core.pbc import PeriodicBox
 
 
-def _to_device(a, device, non_blocking: bool) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if non_blocking and torch.device(device).type == "cuda":
-        # Pinned staging makes the H2D copy truly asynchronous; the caching
-        # host allocator keeps the buffer alive until the copy completes.
-        t = t.pin_memory()
-    return t.to(device, non_blocking=non_blocking)
-
-
-def transport_to_torch(window, device, non_blocking: bool = False):
+def transport_to_torch(window, device, non_blocking: bool = False, alloc=None):
     """One ``TrajectoryReader.iter_windows`` item -> ``(transport, boxes,
     invs)`` on ``device``.
 
     ``transport`` keeps the wire form: a f32 ``(B, N, 3)`` tensor, the pair
     ``(i16 ints, scale)``, or the triple ``(frame0 i16, deltas i8, scale)``
     (scale a 0-d f32 tensor); :func:`tasks.trajectory.decode_window_coords`
-    expands all three bit-exactly.
+    expands all three bit-exactly. A ``non_blocking`` copy returns before
+    the bytes have left the host, so its source must be pinned memory that
+    stays untouched until the copy has completed: the window's arrays as
+    ``iter_windows(..., alloc=...)`` placed them in a staging buffer, the
+    small ones (boxes, scale) placed there by ``alloc`` here.
     """
     coords, boxes, invs = window[0], window[1], window[2]
 
     def conv(a):
         if isinstance(a, np.generic) or np.ndim(a) == 0:
             a = np.asarray(a, dtype=np.float32)
-        return _to_device(a, device, non_blocking)
+        a = np.ascontiguousarray(a)
+        if alloc is not None and not alloc.owns(a):
+            staged = alloc(a.shape, a.dtype)
+            staged[...] = a
+            a = staged
+        return torch.from_numpy(a).to(device, non_blocking=non_blocking)
 
     transport = tuple(map(conv, coords)) if isinstance(coords, tuple) else conv(coords)
     return transport, conv(boxes), conv(invs)
@@ -81,7 +81,8 @@ def workload_from_numpy(name: str, system, device):
     atom indices its windows ship."""
     from . import workloads as wl
     from .ops.measure import contiguous_segments_dense
-    from .ops.neighbor import grid_dims_for
+    from .ops.neighbor import estimate_caps, grid_dims, grid_dims_for
+    from .ops.sasa_lr import neighbor_lists
 
     if name not in wl.WORKLOADS:
         raise ValueError(f"workload must be one of {tuple(wl.WORKLOADS)}, got {name!r}")
@@ -97,6 +98,7 @@ def workload_from_numpy(name: str, system, device):
         "com_splits": system.protein,
         "contacts": np.concatenate([system.protein, system.ligand]),
         "fused": np.unique(np.concatenate([system.ca, system.protein, system.ligand])),
+        "sasa": system.protein,
     }[name]
 
     def rows(atoms):
@@ -120,8 +122,21 @@ def workload_from_numpy(name: str, system, device):
         return wl.Contacts(i64(src), i64(tgt), grid_dims_for(PeriodicBox(system.box), wl.CUTOFF),
                            wl.CUTOFF, wl.MAX_PAIRS, wl.GRID_CAP)
 
+    def sasa():
+        # Frame-0 exact counts size the static caps; overflow escalates tiers.
+        radii = wl.sasa_radii(len(system.protein))
+        extents = PeriodicBox(system.box).box_extents().astype(np.float64)
+        dims = grid_dims(extents, 2 * float(radii.max()))
+        c0 = system.coords[system.protein].astype(np.float64)
+        nb0, _ = neighbor_lists(c0, radii, cap=1024)
+        cell0, _, _ = estimate_caps(c0, np.diag(1.0 / extents), dims, margin=1.0, round_to=1)
+        idx, w, _ = contiguous_segments_dense(system.segment_ids)
+        return wl.Sasa(f32(radii), i64(idx), f32(w), extents, dims,
+                       int((nb0 >= 0).sum(1).max()), int(cell0))
+
     if name == "fused":
         model = wl.Fused(i64(rows(system.ca)), ca_rmsd(), com_splits(), contacts())
     else:
-        model = {"ca_rmsd": ca_rmsd, "com_splits": com_splits, "contacts": contacts}[name]()
+        model = {"ca_rmsd": ca_rmsd, "com_splits": com_splits, "contacts": contacts,
+                 "sasa": sasa}[name]()
     return model.to(device), subset

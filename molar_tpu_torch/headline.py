@@ -24,6 +24,7 @@ from .io.xtc import XtcHandler
 from .ops.measure import fit_rmsd
 from .ops.neighbor import estimate_caps, within_mask, within_mask_window
 from .ops.neighbor_rows import within_mask_rows_window
+from .tasks import trajectory
 from .tasks.trajectory import TrajectoryReader, decode_window_coords, run_with_overflow_retry
 
 #: The search routes of :class:`FitWithinWindow`.
@@ -81,7 +82,11 @@ def caps_for(cap0: int, tcap0: int, cells0: int, tier: int) -> tuple[int, int, i
     """Capacity tier ``tier`` (``bench.py:caps_for``): the caps get a x1.2
     margin, x1.5 per tier, +2 slots, rounded up to a multiple of 8; the
     occupied-target-cell slots a x1.25 margin, x1.5 per tier, rounded up to
-    a multiple of 256, at least 512."""
+    a multiple of 256, at least 512. Held against the headline's own data
+    on an NVIDIA H100's host (``chip_smoke.py``, the ``headline_caps``
+    line): over its 256-frame walk the fullest frame needs 1.21 / 1.13 /
+    1.42 times frame 0's counts, and tier 0 holds it (46 of 48, 26 of 32,
+    742 of 768); what drifts further goes to the retry."""
     g = 1.5**tier
     cap = (int(cap0 * 1.2 * g) + 2 + 7) // 8 * 8
     tcap = (int(tcap0 * 1.2 * g) + 2 + 7) // 8 * 8
@@ -159,7 +164,8 @@ class FitWithinWindow(nn.Module):
 
 def run(xtc_path, ref, masses, protein_idx, box, cutoff, dims, caps0, window, device,
         search: str = "ghost"):
-    """Stream ``xtc_path`` in i8-delta windows through
+    """Stream ``xtc_path`` in windows of the shipped wire form
+    (:data:`~molar_tpu_torch.tasks.trajectory.WIRE`) through
     :class:`FitWithinWindow`, retrying overflowed windows over four capacity
     tiers (``bench.py``'s settings). ``box`` is the host
     :class:`~molar_tpu_torch.core.pbc.PeriodicBox` that picks the route
@@ -176,7 +182,7 @@ def run(xtc_path, ref, masses, protein_idx, box, cutoff, dims, caps0, window, de
 
     results, retried = run_with_overflow_retry(
         TrajectoryReader([xtc_path]), window, build, device,
-        overflow_of=lambda r: r[3], n_tiers=4, quantized="delta",
+        overflow_of=lambda r: r[3], n_tiers=4, quantized=trajectory.WIRE,
     )
     ids = np.concatenate([np.asarray(i) for i, _ in results])
     rmsd, count, check = (

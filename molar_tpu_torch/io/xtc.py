@@ -2,7 +2,8 @@
 
 The slice's subset of ``molar_tpu.io.xtc.XtcHandler``: the file is
 memory-mapped and indexed up front (exact random access), windows of frames
-decode in parallel threads (ctypes releases the GIL inside the codec), and
+decode in parallel threads (ctypes releases the GIL inside the codec; one
+pool a handler, closed with it), and
 ``read_frames_i16`` returns the stream's raw quantized ints for the
 half-/quarter-byte window transports. Coordinates are nm, box rows on disk
 are vectors (transposed into the column convention here).
@@ -25,6 +26,15 @@ from ..native import load as load_native
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _f32p = ctypes.POINTER(ctypes.c_float)
 _i16p = ctypes.POINTER(ctypes.c_int16)
+
+
+#: Threads that decode the frames of one window, at most (never more than
+#: the host's cores). From a sweep on the 8-core host of an NVIDIA H100 80GB
+#: HBM3 (``chip_smoke.py``, the ``decode_workers`` line): 256 frames of
+#: 100,000 atoms decode in 0.79-1.19 s on 1 thread, 0.25-0.54 on 4 and
+#: 0.15-0.44 on 8 (three calls); the prefix decode of a 4,000-row subset
+#: does not care (0.14-0.26 s for 1,024 frames at any count).
+DECODE_WORKERS = 8
 
 
 class XtcError(RuntimeError):
@@ -67,6 +77,7 @@ class XtcHandler:
         self._lib = load_native()
         self._mm: Optional[mmap.mmap] = None
         self._sticky: Optional[int] = None
+        self._pool: Optional[ThreadPoolExecutor] = None
         if mode == "r":
             self._fh = open(path, "rb")
             try:
@@ -177,21 +188,24 @@ class XtcHandler:
         step, time, box9 = self._decode_at(int(self._offsets[i]), coords)
         return Frame(coords=coords, box=_box_from_rows(box9), time=time, step=step)
 
-    @staticmethod
-    def _run(work, count: int) -> None:
-        workers = min(os.cpu_count() or 1, 8)
+    def _run(self, work, count: int) -> None:
+        """``work(k)`` for every frame of a window, on the handler's pool
+        (made at the first window that has more than one frame)."""
+        workers = min(os.cpu_count() or 1, DECODE_WORKERS)
         if workers > 1 and count > 1:
-            with ThreadPoolExecutor(max_workers=workers) as ex:
-                list(ex.map(work, range(count)))
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(max_workers=workers)
+            list(self._pool.map(work, range(count)))
         else:
             for k in range(count):
                 work(k)
 
-    def read_frames(self, start: int, count: int):
+    def read_frames(self, start: int, count: int, alloc=None):
         """Parallel decode of a frame window -> (coords (B,N,3), boxes (B,3,3)
-        column convention, times (B,))."""
+        column convention, times (B,)). ``alloc(shape, dtype) -> ndarray``
+        places the coordinates (None: ``np.empty``)."""
         count = max(0, min(count, self.n_frames - start))
-        coords = np.empty((count, self._natoms, 3), dtype=np.float32)
+        coords = (alloc or np.empty)((count, self._natoms, 3), np.float32)
         boxes = np.empty((count, 3, 3), dtype=np.float32)
         times = np.empty(count, dtype=np.float32)
 
@@ -204,7 +218,7 @@ class XtcHandler:
         return coords, boxes, times
 
     def read_frames_i16(
-        self, start: int, count: int, n_prefix: Optional[int] = None
+        self, start: int, count: int, n_prefix: Optional[int] = None, alloc=None
     ):
         """Decode a window to the raw quantized ints as int16:
         -> (icoords (B,N,3) i16, scale f32, boxes, times).
@@ -213,7 +227,8 @@ class XtcHandler:
         ValueError when the window is not representable (beyond +-32767
         units, uncompressed tiny frames, mixed precisions); callers then use
         :meth:`read_frames`. ``n_prefix`` decodes only the first n_prefix
-        atoms of each frame (XDR3DFR is sequential per atom).
+        atoms of each frame (XDR3DFR is sequential per atom). ``alloc(shape,
+        dtype) -> ndarray`` places the ints (None: ``np.empty``).
         """
         count = max(0, min(count, self.n_frames - start))
         n_rows = self._natoms if n_prefix is None else min(n_prefix, self._natoms)
@@ -227,7 +242,7 @@ class XtcHandler:
         prefix = n_rows < self._natoms
         sticky = self._dialect() if prefix else 0
         slack = self.PREFIX_SLACK if prefix else 0
-        icoords = np.empty((count, n_rows + slack, 3), dtype=np.int16)
+        icoords = (alloc or np.empty)((count, n_rows + slack, 3), np.int16)
         boxes = np.empty((count, 3, 3), dtype=np.float32)
         times = np.empty(count, dtype=np.float32)
         precs = np.empty(count, dtype=np.float32)
@@ -300,6 +315,9 @@ class XtcHandler:
             self._lib.xtc_free(out)
 
     def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
         if self._mm is not None:
             # Drop the numpy view before closing the mapping it exports.
             self._data = None

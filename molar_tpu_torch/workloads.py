@@ -1,10 +1,11 @@
 """The selection workloads on torch: CA-RMSD, per-residue COM and gyration,
-protein-ligand contact lists, and the three fused into one window program.
+protein-ligand contact lists, the three fused into one window program, and
+the per-residue exact Lee-Richards SASA time series.
 
 The port of ``benchmarks/workloads.py``'s ``wl_ca_rmsd``, ``wl_com_splits``,
-``wl_contacts`` and ``wl_fused``: a solvated protein whose trajectory streams
-from an XTC file in i8-delta windows that carry only the selection's atom
-rows (``TrajectoryReader`` -> ``WindowPipeline`` -> one ``nn.Module`` a
+``wl_contacts``, ``wl_fused`` and ``wl_sasa``: a solvated protein whose
+trajectory streams from an XTC file in windows (``tasks.trajectory.WIRE``) that carry
+only the selection's atom rows (``TrajectoryReader`` -> ``WindowPipeline`` -> one ``nn.Module`` a
 workload), each reduced to the check scalar that the single-core C++
 program ``benchmarks/native_workloads.cpp`` prints for the same file, so
 every run can be held against an independent implementation.
@@ -31,22 +32,27 @@ from torch import nn
 from torch.profiler import record_function
 
 from . import build, convert, headline
-from .ops.measure import dense_segment_com_gyration, fit_rmsd
+from .ops import sasa_lr
+from .ops.measure import dense_segment_com_gyration, dense_segment_sum, fit_rmsd
 from .ops.neighbor import contact_pairs_dense_window, contact_pairs_window
+from .tasks import trajectory
 from .tasks.trajectory import (
     AnalysisError, TrajectoryReader, WindowPipeline, auto_window, decode_window_coords,
+    run_with_overflow_retry,
 )
 
 #: The workloads :func:`run` knows, and the name the native program gives each.
 WORKLOADS = {"ca_rmsd": "ca_rmsd", "com_splits": "com_gyr", "contacts": "contacts",
-             "fused": "fused"}
+             "fused": "fused", "sasa": "sasa"}
 
 CUTOFF = 0.4          # nm, the contact distance
 MAX_PAIRS = 1 << 14   # pair-list capacity a frame
 GRID_CAP = 64         # targets a cell, when the cell grid is used
 DENSE_LIMIT = 1 << 21  # n_src * n_tgt up to which the dense matrix is used
 N_LIGAND = 50
-SASA_SLICES = 32      # written into the sidecar; the SASA workload is not ported
+SASA_SLICES = 32      # z-slices an atom of the SASA workload (and of the sidecar)
+SASA_TIERS = 3        # capacity tiers of the SASA workload's lists
+SASA_WINDOW = 16      # frames a window of the SASA stream when none is asked for
 #: van der Waals radius of carbon in nm as ``molar_tpu``'s ``Topology.vdw()``
 #: gives it: 1.7 A (``molar_tpu/core/periodic_table.py:68``) times 0.1 in
 #: float32 (``:94``); the sidecar's radii are this plus the 0.14 nm probe.
@@ -219,12 +225,77 @@ class Fused(nn.Module):
         return rmsd, gyr, count, overflow
 
 
+def sasa_radii(n: int) -> np.ndarray:
+    """The SASA workload's radii, vdW + probe, in float64 as
+    ``benchmarks/workloads.py``'s ``wl_sasa`` forms them (every protein
+    atom of the synthetic system is a carbon)."""
+    return np.full(n, CARBON_VDW_NM, np.float32).astype(np.float64) + PROBE_NM
+
+
+def sasa_caps(k0: int, cell0: int, tier: int) -> tuple[int, int]:
+    """``(k_cap, cell_cap)`` of capacity tier ``tier`` from the frame-0
+    exact counts (``wl_sasa``'s ``build_fn``): a x1.25 margin, x1.5 a tier,
+    rounded up to a multiple of 16 and of 8."""
+    g = 1.5**tier
+    return (int(k0 * 1.25 * g) + 15) // 16 * 16, (int(cell0 * 1.25 * g) + 7) // 8 * 8
+
+
+class Sasa(nn.Module):
+    """Exact Lee-Richards SASA of every residue of every frame: the lists
+    are rebuilt on the device for every frame (no skin, no drift check),
+    the per-atom areas summed over each residue in the dense segment
+    layout. The window ships the protein rows only. Buffers: ``radii``
+    (n,), ``idx`` (Lmax * nseg,) and ``w`` (Lmax, nseg) of the residues.
+    Static: ``extents`` (the box diagonal; a non-periodic grid), ``dims``,
+    the frame-0 counts ``k0`` / ``cell0`` and the ``tier`` that sizes the
+    caps (:func:`sasa_caps`). -> (areas (B, nseg), overflow (B,)); where
+    ``overflow`` is set the frame's areas are undefined."""
+
+    def __init__(self, radii, idx, w, extents, dims, k0: int, cell0: int,
+                 n_slices: int = SASA_SLICES, tier: int = 0):
+        super().__init__()
+        self.register_buffer("radii", radii)
+        self.register_buffer("idx", idx)
+        self.register_buffer("w", w)
+        self.extents = tuple(float(e) for e in extents)
+        self.dims = tuple(dims)
+        self.k0, self.cell0 = k0, cell0
+        self.n_slices = n_slices
+        self.tier = tier
+        self.k_cap, self.cell_cap = sasa_caps(k0, cell0, tier)
+
+    def at_tier(self, tier: int) -> "Sasa":
+        """The same workload at capacity tier ``tier`` (the buffers shared)."""
+        return Sasa(self.radii, self.idx, self.w, self.extents, self.dims, self.k0, self.cell0,
+                    self.n_slices, tier)
+
+    @torch.no_grad()
+    def forward(self, transport, boxes, invs):
+        with _stage("decode"):
+            coords = decode_window_coords(transport)
+        with _stage("lists"):
+            nbr, overflow = sasa_lr.neighbor_lists_device(
+                coords, self.radii, self.extents, self.dims, self.cell_cap, self.k_cap)
+        with _stage("sasa"):
+            areas = sasa_lr.sasa(coords, self.radii, nbr, n_slices=self.n_slices)
+        with _stage("residues"):
+            return dense_segment_sum(areas, self.idx, self.w), overflow
+
+
 def _checks(name: str, outs) -> dict:
     """The check scalars of a stream's per-window results, as the native
     program defines them: mean RMSD; mean over frames of the mean
-    per-residue gyration; mean contact count. Raises on a pair-list
-    overflow and on a stream without a single contact."""
+    per-residue gyration; mean contact count; mean total area a frame.
+    Raises on a pair-list overflow, on a stream without a single contact
+    and on a frame without area."""
     cols = [torch.cat(col).cpu().numpy() for col in zip(*outs)]
+    if name == "sasa":
+        total = cols[0].sum(axis=1)
+        if cols[1].any():
+            raise AnalysisError("sasa: a frame's lists overflowed: its areas are undefined")
+        if not (total > 0).all():
+            raise AnalysisError("sasa: a frame without area: broken lists or broken slicing")
+        return {"check": float(total.mean())}
     if name == "ca_rmsd":
         return {"check": float(cols[0].mean())}
     if name == "com_splits":
@@ -243,17 +314,25 @@ def _checks(name: str, outs) -> dict:
 
 
 def run(name: str, system: System, xtc: str, window: int, device):
-    """Stream ``xtc`` through workload ``name`` on ``device`` in i8-delta
-    windows of ``window`` frames (0: :func:`auto_window` sizes it from the
-    subset) that carry only the workload's rows; one synchronize, at the
-    end. Returns (frames, seconds of the stream, check scalars)."""
+    """Stream ``xtc`` through workload ``name`` on ``device`` in windows of
+    ``window`` frames (0: :func:`auto_window` sizes it from the subset;
+    :data:`SASA_WINDOW` for ``sasa``, whose pace the device sets) that
+    carry only the workload's rows; one synchronize, at the end. A
+    ``sasa`` window whose lists overflow is run again at the next of
+    :data:`SASA_TIERS` capacity tiers, and the last tier's overflow
+    raises. Returns (frames, seconds of the stream, check scalars)."""
     model, subset = convert.workload_from_numpy(name, system, device)
-    window = auto_window(xtc, subset, requested=window)
-    pipe = WindowPipeline(TrajectoryReader([xtc]), window, model, device, quantized="delta",
-                          subset=subset)
+    reader = TrajectoryReader([xtc])
     frames, outs = 0, []
     t0 = time.perf_counter()
-    for ids, res in pipe.run():
+    if name == "sasa":
+        results, _ = run_with_overflow_retry(
+            reader, window or SASA_WINDOW, model.at_tier, device, overflow_of=lambda r: r[1],
+            n_tiers=SASA_TIERS, quantized=trajectory.WIRE, subset=subset)
+    else:
+        results = WindowPipeline(reader, auto_window(xtc, subset, requested=window), model,
+                                 device, quantized=trajectory.WIRE, subset=subset).run()
+    for ids, res in results:
         outs.append(res)
         frames += len(ids)
     if torch.device(device).type == "cuda":

@@ -3,7 +3,8 @@
 registration. A subprocess with both blocked imports every module of the
 port and runs the headline slice at a tiny size on the CPU, through the
 ghost and row routes and, on a rhombic dodecahedron, the correction path,
-and the four selection workloads over subset windows; a static scan finds no JAX or ``molar_tpu`` import in the port or in
+the selection workloads (the SASA one among them) over subset windows, and
+``ops/sasa_lr`` and ``ops/sasa`` on a small cluster; a static scan finds no JAX or ``molar_tpu`` import in the port or in
 ``chip_smoke.py``.
 """
 
@@ -84,8 +85,8 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
     # The selection workloads, streamed over subset windows.
     from molar_tpu_torch import workloads as wl
     from molar_tpu_torch.tasks.trajectory import auto_window
-    for name in ("workloads", "ops.measure", "ops.neighbor", "tasks.trajectory", "convert",
-                 "build"):
+    for name in ("workloads", "ops.measure", "ops.neighbor", "ops.sasa_lr", "ops.sasa",
+                 "tasks.trajectory", "convert", "build"):
         assert "molar_tpu_torch." + name in sys.modules, name
     s = wl.synth_system(1500, 300)
     with tempfile.TemporaryDirectory() as d:
@@ -97,6 +98,23 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
     assert got["fused"][2]["check"] == got["ca_rmsd"][2]["check"] > 0
     assert got["fused"][2]["check_com"] == got["com_splits"][2]["check"] > 0
     assert got["fused"][2]["check_contacts"] == got["contacts"][2]["check"] > 0
+    assert "sasa" in got and got["sasa"][2]["check"] > 0
+    # Exact and sampled SASA of a small cluster, and the series evaluator.
+    import torch
+    from molar_tpu_torch.ops import sasa, sasa_lr
+    rng = np.random.default_rng(7)
+    c = rng.uniform(0.2, 1.8, (80, 3)).astype(np.float32)
+    r = np.full(80, 0.3, np.float32)
+    nbr, ofl = sasa_lr.neighbor_lists(c, r, cap=96)
+    exact = sasa_lr.sasa(torch.from_numpy(c), torch.from_numpy(r), torch.from_numpy(nbr), 32)
+    window, flags = sasa_lr.sasa_window(torch.from_numpy(c[None]), torch.from_numpy(r),
+                                        (2.0, 2.0, 2.0), (3, 3, 3), 40, 96)
+    assert not ofl and not flags.any() and torch.allclose(window[0], exact, atol=1e-6)
+    nbm, _ = sasa.neighbor_matrix(c, r, cap=96)
+    sampled = sasa.shrake_rupley(torch.from_numpy(c), torch.from_numpy(r), torch.from_numpy(nbm))
+    assert abs(float(sampled.sum()) - float(exact.sum())) < 0.03 * float(exact.sum())
+    series = sasa_lr.SasaSeries(c, r - 0.14, extents=(2.0, 2.0, 2.0), n_slices=32, device="cpu")
+    assert torch.allclose(series.update(c), exact, atol=1e-6)
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "molar_tpu")
               and sys.modules[m] is not None]
     assert not leaked, leaked

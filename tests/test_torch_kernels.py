@@ -417,3 +417,84 @@ def test_fit_rmsd_tf32_on_card(cuda_device):
     assert torch.get_float32_matmul_precision() == "highest"
     assert pinned_prod < 1e-5 < 1e-4 < tf32_prod
     assert pinned <= 1e-5 and tf32 <= 1e-5
+
+
+def _sasa_scene(n=600, seed=31):
+    rng = np.random.default_rng(seed)
+    coords = rng.uniform(0.4, 3.6, (4, n, 3)).astype(np.float32)
+    coords[1:] = coords[0] + np.cumsum(rng.normal(0, 0.01, (3, n, 3)), axis=0).astype(np.float32)
+    return coords, rng.uniform(0.27, 0.33, n).astype(np.float32), (4.0, 4.0, 4.0), (6, 6, 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell_cap,k_cap,overflows", [(48, 96, False), (4, 96, True),
+                                                      (48, 8, True)])
+def test_sasa_lists_on_card_equal_the_cpu(cuda_device, cell_cap, k_cap, overflows):
+    """The device list build (plain torch) on the card against the CPU:
+    lists equal slot by slot where no flag is set, flags equal, and no
+    host sync inside the build."""
+    from molar_tpu_torch.ops import sasa_lr
+
+    coords, radii, extents, dims = _sasa_scene()
+    want, wofl = sasa_lr.neighbor_lists_device(torch.as_tensor(coords), torch.as_tensor(radii),
+                                               extents, dims, cell_cap, k_cap)
+    c, r = torch.as_tensor(coords).to(cuda_device), torch.as_tensor(radii).to(cuda_device)
+    sasa_lr.neighbor_lists_device(c, r, extents, dims, cell_cap, k_cap)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, ofl = sasa_lr.neighbor_lists_device(c, r, extents, dims, cell_cap, k_cap)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ofl.cpu().tolist() == wofl.tolist() == [overflows] * 4
+    if not overflows:
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [None, 500])
+def test_sasa_on_card_matches_the_cpu(cuda_device, block):
+    """Exact Lee-Richards areas of a 4-frame window on the card against the
+    CPU, 2e-6 nm^2 an atom (``atan2`` and ``acos`` differ by ulps), with
+    host syncs made errors; the banded form and Shrake-Rupley too."""
+    from molar_tpu_torch.ops import sasa, sasa_lr
+
+    coords, radii, extents, dims = _sasa_scene()
+    want, wofl = sasa_lr.sasa_window(torch.as_tensor(coords), torch.as_tensor(radii), extents,
+                                     dims, 48, 96, n_slices=32, block=block)
+    c, r = torch.as_tensor(coords).to(cuda_device), torch.as_tensor(radii).to(cuda_device)
+    sasa_lr.sasa_window(c, r, extents, dims, 48, 96, n_slices=32, block=block)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, ofl = sasa_lr.sasa_window(c, r, extents, dims, 48, 96, n_slices=32, block=block)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not ofl.any() and not wofl.any()
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=2e-6, rtol=0)
+    assert float(got.sum()) > 0
+
+    nbr, _ = sasa_lr.neighbor_lists(coords[0], radii, cap=128, skin=0.1)
+    nbz, starts, w, g = sasa_lr.band_neighbor_lists(coords[0], radii, nbr, 32, skin=0.1)
+    banded = sasa_lr.sasa_banded(c[0], r, nbz, starts, w, g, n_slices=32, block=block)
+    np.testing.assert_allclose(banded.cpu().numpy(), want[0].numpy(), atol=4e-6, rtol=0)
+    nbm, _ = sasa.neighbor_matrix(coords[0], radii, cap=128)
+    sr = sasa.shrake_rupley(c[:2], r, nbm, n_points=240)
+    sr_cpu = sasa.shrake_rupley(torch.as_tensor(coords[:2]), torch.as_tensor(radii),
+                                torch.as_tensor(nbm), n_points=240)
+    # A sample point on a neighbour's surface may fall on either side.
+    assert (sr.cpu() - sr_cpu).abs().max() <= 4 * np.pi * 0.33**2 / 240 * 2
+
+
+@pytest.mark.cuda
+def test_sasa_series_on_card(cuda_device):
+    from molar_tpu_torch.ops import sasa_lr
+
+    coords, radii, extents, _ = _sasa_scene()
+    vdw = radii.astype(np.float64) - 0.14
+    on_card = sasa_lr.SasaSeries(coords[0], vdw, n_slices=32, extents=extents)
+    on_cpu = sasa_lr.SasaSeries(coords[0], vdw, n_slices=32, extents=extents, device="cpu")
+    assert on_card.device.type == "cuda"
+    for c in coords:
+        np.testing.assert_allclose(on_card.update(c).cpu().numpy(), on_cpu.update(c).numpy(),
+                                   atol=2e-6, rtol=0)

@@ -180,7 +180,7 @@ def test_run_raises_on_overflow_and_on_no_contact(case, monkeypatch):
     with pytest.raises(traj.AnalysisError, match="no contact"):
         wl.run("fused", system, xtc, 16, "cpu")
     with pytest.raises(ValueError, match="workload must be one of"):
-        wl.run("sasa", system, xtc, 16, "cpu")
+        wl.run("trjconv", system, xtc, 16, "cpu")
 
 
 def test_native_meta_bytes_equal_the_reference(case, tmp_path):
@@ -267,10 +267,14 @@ def test_overflow_retry_rereads_the_same_rows(case):
 def test_auto_window_rounding_rules(case, rows, target, max_window, want):
     _, _, xtc = case
     subset = None if rows is None else np.arange(rows)
-    got = traj.auto_window(xtc, subset, target_bytes=target, max_window=max_window)
+    # ``target`` counts the JAX package's 3 bytes a row a frame; the port
+    # counts the bytes of the wire form it ships. Frame for frame the rules
+    # are the same.
+    mine = target * traj.WIRE_BYTES[traj.WIRE] // 3
+    got = traj.auto_window(xtc, subset, target_bytes=mine, max_window=max_window)
     assert got == want
     assert got == jtraj.auto_window(xtc, subset, target_bytes=target, max_window=max_window)
-    assert traj.auto_window(xtc, subset, requested=7, target_bytes=target) == 7
+    assert traj.auto_window(xtc, subset, requested=7, target_bytes=mine) == 7
 
 
 def test_auto_window_raises_on_what_is_not_an_xtc(tmp_path):
