@@ -13,8 +13,10 @@ correction path (plain torch) on a rhombic dodecahedron of the same density.
 Then the four selection workloads (CA-RMSD, per-residue COM and gyration,
 protein-ligand contact lists, the three fused) stream a 50,000-atom solvated
 protein over windows that carry only their selections' rows, the host side
-of the stream is measured part by part, and the exact Lee-Richards SASA
-workload runs on the same system. Weights do not exist here; the systems
+of the stream is measured part by part, the exact Lee-Richards SASA
+workload runs on the same system, and the membrane pipeline runs on
+``benchmarks/workloads.py``'s two bilayers (72 and 4,608 lipids). Weights
+do not exist here; the systems
 and their trajectories are made from seeds. Phases, one line each on stdout
 (the workloads a line each):
 
@@ -95,22 +97,41 @@ and their trajectories are made from seeds. Phases, one line each on stdout
    equal);
    the headline's fps at windows of 16 to 128; the headline's cell
    occupancies over the trajectory against the tier-0 caps frame 0 sizes;
+   the queue depth (windows decoded ahead, 1 to 4) on the headline and
+   ``ca_rmsd`` at 512, results equal; the power iteration after which
+   ``fit_rmsd``'s rotation stops changing, frame by frame, on both files;
 11. sasa path: the exact Lee-Richards SASA workload on phase 9's system,
    64 frames (``benchmarks/workloads.py``'s default depth), 4,000 rows x 32
    slices, lists rebuilt on the device every frame: the caps and the tier,
    no overflow at tier 0, per-residue areas of the first and the last
    window against the module on the CPU (2e-5 nm^2), the element budget of
-   a block swept, fps of 3 passes through ``workloads.run`` and by window
+   a block swept, fps of 3 passes through ``workloads.run`` and of one by window
    size, device ms a frame by stage, top device operations, host enqueue,
    busy share, peak memory, no host sync inside a window (as in 8), the
    bound of ``sasa`` from this run's neighbour triples and the share
    reached; then ``native_workloads.cpp sasa`` on the same file and
-   sidecar: check within 2e-3.
+   sidecar: check within 2e-3;
+12. membrane path: ``benchmarks/workloads.py``'s membrane rows through
+   ``workloads.run_membrane`` (``MembraneDevice`` on the card, the XTC
+   streamed in windows of the bilayer's rows): ``membrane_dev`` (72
+   lipids, 64 frames) and ``membrane_large`` (4,608 lipids, 27,648 atoms,
+   32 frames): ``patch_cap`` and no overflow, fps of 3 passes, the window
+   size swept (and, at 4,608 lipids, the chunk budget), one resident window
+   by stage (device ms a frame, top device operations, host enqueue, busy
+   share, peak memory), the window function on the CPU against the card on
+   the first and the last window within the bars of
+   ``tests/torch_scenes.MEMBRANE_BARS``, no host sync in a window (as in 8),
+   the bound from this window's patch counts and the share reached; then
+   ``benchmarks/native_membrane.cpp`` on the same decoded frames: check
+   scalars within ``MEMBRANE_TOL``. Last the engine sweep: one window at
+   72 / 288 / 1,152 / 4,608 lipids through ``compute_window`` on torch-CPU
+   and on the card, and the floor of ``tasks.engine`` those times give.
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: the ghost path must launch only the two ghost kernels,
 the rows path the binning kernel and the row kernel once a window each and
-never the ghost stencil, and the dodecahedron, workloads and sasa paths none.
+never the ghost stencil, and the dodecahedron, workloads, sasa and membrane
+paths none.
 
 Any failure raises, and then the script exits non-zero without its last
 line. The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -166,9 +187,10 @@ DODECA_D = (1000.0 * np.sqrt(2.0)) ** (1 / 3)
 DODECA_DIMS = (18, 18, 15)
 DODECA_FRAMES = 64
 # The card bounds this path whatever the window: it keeps the 16 frames it
-# was first measured at (a 64-frame window would be the whole file).
+# was first measured at (a 64-frame window would be the whole file), and two
+# timed passes.
 DODECA_WINDOW = 16
-DODECA_REPEATS = 3
+DODECA_REPEATS = 2
 BRUTE_SAMPLE = 5000
 STAGES = ("decode", "fit_rmsd", "search", "checksum")
 # The workloads path: benchmarks/workloads.py's defaults (--atoms, --protein,
@@ -682,8 +704,8 @@ def phase_main_path(device, args, native_exe, workdir):
 def _stage_device_ms(prof, last_pass_from=None):
     """Device ms of a profiled pass by the ``stage:`` range each device
     operation ran in ("outside" for none), and the number of device
-    operations. A stage's device work is what runs inside its range on the
-    device's timeline (one stream, so the ranges do not overlap). The
+    operations. A stage's device work is what runs inside its innermost
+    range on the device's timeline (one stream; a range may hold another). The
     profiler ties no kernel launched through ctypes to a host-side range,
     so the device-side ranges are the ones read. When the trace holds
     several passes, ``last_pass_from`` names the stage a pass begins with:
@@ -699,7 +721,9 @@ def _stage_device_ms(prof, last_pass_from=None):
     ops = [e.time_range for e in device if not e.name.startswith("stage:")]
     by_stage = {}
     for tr in ops:
-        name = next((n for n, lo, hi in ranges if lo <= tr.start and tr.end <= hi), "outside")
+        # the innermost range holding the operation (ranges may nest)
+        name = min(((hi - lo, n) for n, lo, hi in ranges if lo <= tr.start and tr.end <= hi),
+                   default=(0, "outside"))[1]
         by_stage[name] = by_stage.get(name, 0.0) + (tr.end - tr.start) / 1e3
     return by_stage, len(ops)
 
@@ -1296,6 +1320,17 @@ def phase_workloads(device, workdir):
 
 # ---------------------------------------------------------------- phase 10
 
+# Queue depths of the window stream swept (windows decoded ahead of compute).
+QUEUE_DEPTHS = (1, 2, 3, 4)
+
+
+def _kabsch_iters() -> int:
+    import inspect
+
+    from molar_tpu_torch.ops.measure import kabsch
+
+    return inspect.signature(kabsch).parameters["iters"].default
+
 
 class _GraphWindow:
     """A window function replayed from a CUDA graph: full-size windows are
@@ -1374,7 +1409,8 @@ def phase_host_stream(device, args, headline_path, wl_system, wl_path):
     decode worker count, the wire form, the feeder's parts a window, CUDA
     graph replay of the window function, the headline's window size, and
     the headline's cell occupancies over the trajectory against its cap
-    tiers. Every comparison is made inside this one process."""
+    tiers, the queue depth, and how many of ``fit_rmsd``'s power iterations
+    change its result. Every comparison is made inside this one process."""
     import torch
 
     from molar_tpu_torch import convert, headline
@@ -1536,6 +1572,93 @@ def phase_host_stream(device, args, headline_path, wl_system, wl_path):
           margin_needed=repr(tuple(round(float(w) / c, 3) for w, c in zip(worst, caps0))),
           tier0_holds=bool((worst <= np.array(tier0)).all()))
 
+    # (g) The queue depth: windows decoded ahead of compute (the ring holds
+    # one buffer more). The headline at its window, ca_rmsd at 512.
+    shipped_depth = trajectory._QUEUE_DEPTH
+    by_depth, moved = {}, 0
+    want_ca = None
+    try:
+        for depth in QUEUE_DEPTHS:
+            trajectory._QUEUE_DEPTH = depth
+            fps_h, out = headline_fps(WINDOW)
+            moved += sum(int(not np.array_equal(a, b))
+                         for a, b in zip(out[1:4], results[shipped_wire]))
+            fps_ca = []
+            for _ in range(3):
+                frames, seconds, chk = wl.run("ca_rmsd", wl_system, wl_path, 512, device)
+                fps_ca.append(frames / seconds)
+                want_ca = chk["check"] if want_ca is None else want_ca
+                moved += int(chk["check"] != want_ca)
+            by_depth[depth] = (round(fps_h, 1), round(float(np.median(fps_ca)), 1))
+    finally:
+        trajectory._QUEUE_DEPTH = shipped_depth
+    phase("queue_depth", shipped=shipped_depth, ring_buffers="depth + 1", results_moved=moved,
+          headline_window=WINDOW, ca_rmsd_window=512,
+          fps_median_headline_ca_rmsd_by_depth=repr(by_depth))
+    if moved:
+        raise AssertionError("results differ between queue depths")
+
+    # (h) fit_rmsd's power iterations.
+    fit_rmsd_iterations(device, headline_path, ref, pmass, wl_system, wl_path, ca_rows)
+
+
+def fit_rmsd_iterations(device, headline_path, ref, pmass, wl_system, wl_path, ca_rows):
+    """After how many power iterations ``fit_rmsd``'s rotation (a function
+    of the quaternion) stops changing, frame by frame, on every frame of
+    the headline's file and of ca_rmsd's: bit for bit, and to within 1e-6
+    of the shipped count's rotation."""
+    import torch
+
+    from molar_tpu_torch import convert
+    from molar_tpu_torch.tasks import trajectory
+
+    ca_ref = torch.as_tensor(wl_system.coords[wl_system.ca], device=device)
+    ca_mass = torch.as_tensor(wl_system.masses[wl_system.ca], device=device)
+    streams = {
+        "headline": (headline_path, WINDOW, None, torch.as_tensor(ref, device=device),
+                     torch.as_tensor(pmass, device=device), slice(0, PROTEIN)),
+        "ca_rmsd": (wl_path, 512, ca_rows, ca_ref, ca_mass, slice(None)),
+    }
+    for label, (path, window, rows, sref, smass, cols) in streams.items():
+        exact, close = [], []
+        for w in trajectory.TrajectoryReader([path]).iter_windows(window, quantized=_wire(),
+                                                                 subset=rows):
+            coords = trajectory.decode_window_coords(convert.transport_to_torch(w, device)[0])
+            e, c = _kabsch_convergence(coords[:, cols], sref, smass)
+            exact.append(e)
+            close.append(c)
+        exact, close = (torch.cat(x).cpu().numpy() for x in (exact, close))
+        shipped = _kabsch_iters()
+        phase("fit_rmsd_iterations", stream=label, frames=len(exact), shipped=shipped,
+              unchanged_after_max=int(exact.max()), unchanged_after_median=float(np.median(exact)),
+              frames_still_changing_at_shipped=int((exact >= shipped).sum()),
+              within_1e6_after_max=int(close.max()),
+              within_1e6_after_median=float(np.median(close)))
+
+
+def _kabsch_convergence(mobile, ref, masses):
+    """For each frame, the number of power iterations after which
+    ``ops.measure.kabsch``'s rotation no longer changes bit for bit, and
+    after which it stays within 1e-6 of the rotation at the shipped count
+    (the inputs as ``fit_rmsd`` forms them)."""
+    import torch
+
+    from molar_tpu_torch.ops.measure import center, kabsch
+
+    c1 = mobile - center(mobile, masses)[..., None, :]
+    target = ref.expand(mobile.shape)
+    c2 = target - center(target, masses)[..., None, :]
+    final = kabsch(c1, c2, masses)
+    exact = torch.zeros(mobile.shape[0], dtype=torch.int64, device=mobile.device)
+    close = torch.zeros_like(exact)
+    prev = kabsch(c1, c2, masses, iters=0)
+    for n in range(1, _kabsch_iters() + 1):
+        rot = kabsch(c1, c2, masses, iters=n)
+        exact = torch.where((rot != prev).flatten(1).any(dim=1), n, exact)
+        close = torch.where((prev - final).abs().flatten(1).amax(dim=1) > 1e-6, n, close)
+        prev = rot
+    return exact, close
+
 
 # ---------------------------------------------------------------- phase 11
 
@@ -1616,9 +1739,12 @@ def phase_sasa(device, workdir, system, meta):
         passes.append(frames / seconds)
     if frames != SASA_FRAMES or not np.isfinite(checks["check"]) or checks["check"] <= 0:
         raise AssertionError(f"sasa: {frames} frames, check {checks}")
-    by_window = {w: round(float(np.median([f / s for f, s, _ in (
-        wl.run("sasa", system, path, w, device) for _ in range(SASA_REPEATS))])), 2)
-        for w in (4, 8, 16, 32, 64)}
+    # One pass a size: the card bounds this stream (106-113 fps at every
+    # size when swept with three passes a size).
+    by_window = {}
+    for w in (4, 8, 16, 32, 64):
+        frames_w, seconds_w, _ = wl.run("sasa", system, path, w, device)
+        by_window[w] = round(frames_w / seconds_w, 2)
     launches = _launches()
     if any(launches.values()):
         raise AssertionError(f"the sasa path launched kernels {launches}")
@@ -1658,7 +1784,7 @@ def phase_sasa(device, workdir, system, meta):
           k0=model.k0, cell0=model.cell0, k_cap=model.k_cap, cell_cap=model.cell_cap, tier=0,
           frames_overflowed_tier0=overflowed,
           e2e_fps=[round(p, 3) for p in passes], e2e_fps_best=max(passes),
-          e2e_fps_median=float(np.median(passes)), fps_median_by_window=repr(by_window),
+          e2e_fps_median=float(np.median(passes)), fps_by_window=repr(by_window),
           window_wall_ms=wall_ms, window_host_enqueue_ms=enqueue_ms,
           window_device_ms=sum(by_stage.values()),
           device_ms_per_frame=sum(by_stage.values()) / window,
@@ -1688,6 +1814,276 @@ def phase_sasa(device, workdir, system, meta):
         raise AssertionError(f"sasa: check scalar off the native program's: {bad}")
 
 
+# ---------------------------------------------------------------- phase 12
+
+# benchmarks/workloads.py's membrane rows: name -> (lipids a leaflet side,
+# frames): membrane_dev 72 lipids x 64 frames, membrane_large 4,608 lipids
+# (27,648 atoms) x 32 frames. 3 timed passes; the window sizes and the
+# chunk budgets swept; the engine sweep's sizes (nx = ny).
+MEMBRANE_SYSTEMS = {"membrane_dev": (6, 64), "membrane_large": (48, 32)}
+MEMBRANE_REPEATS = 3
+MEMBRANE_WINDOWS = (4, 8, 16, 32, 64)
+MEMBRANE_BLOCKS = (24, 25, 26, 27, 28)
+MEMBRANE_ENGINE_SIDES = (6, 12, 24, 48)
+MEMBRANE_STAGES = ("unwrap_markers", "patches", "normals", "smooth", "smooth.fit",
+                   "smooth.voronoi", "order")
+# Operations of the window function, counted from membrane/device.py's code
+# (float operations and compares; gathers and the top-K selection not):
+# a head pair of the patch search (difference 3, orthorhombic image 12,
+# squared distance 5, cutoff 1, mask 1); a (lipid, vertex, plane) triple of
+# the Voronoi vertex test (2 products, sum, difference, compare, or, all);
+# a vertex (plane pair) of a lipid's cell (determinant 3, parallel test 2,
+# guard 1, the two coordinates 8, its flags 4); an (on-plane vertex,
+# plane) of the edge extremes (tangent 4, mask 2, min and max 2); a patch
+# slot of the fit (displacement and image 15, local frame 15, design row
+# and masks 11, normal equations 84) and of the normal seeding (2 passes of
+# 13); and a lipid's own arithmetic (local frame and inverse ~60, Cholesky
+# ~150, curvature and normal ~40, the rest ~50) plus 45 a plane (endpoints,
+# lift, area).
+MEMBRANE_OPS = {"pair": 23, "triple": 7, "vertex": 18, "edge": 8, "slot": 125 + 26,
+                "lipid": 300, "plane": 45}
+
+
+def _membrane_flat(outs):
+    """A membrane window's output dict as a tuple of tensors, in key order."""
+    flat = []
+    for k in sorted(outs):
+        if isinstance(outs[k], dict):
+            flat.extend(t for sp in sorted(outs[k]) for t in outs[k][sp])
+        else:
+            flat.append(outs[k])
+    return tuple(flat)
+
+
+def _membrane_work(dev, coords):
+    """This window's operations and bytes of the window function: the real
+    patch counts of every lipid (min image over the head markers on the
+    card, frame by frame) size its Voronoi and fit work."""
+    import torch
+
+    spec, L = dev.spec, dev.n_lipids
+    heads_rows = torch.as_tensor(spec.head[0].astype(np.int64), device=coords.device)
+    ext = torch.as_tensor(np.diag(dev.build_box).astype(np.float32), device=coords.device)
+    c2 = float(np.float32(spec.options.cutoff**2))
+    ops = 0
+    for f in range(coords.shape[0]):
+        h = coords[f, heads_rows]
+        d = h[None, :, :] - h[:, None, :]
+        d = d - ext * torch.round(d / ext)
+        n = ((d * d).sum(-1) <= c2).sum(1).double() - 1
+        n = n.clamp(max=dev.patch_cap)
+        P = n + 4
+        M = P * (P - 1) / 2
+        ops += float(L * L * MEMBRANE_OPS["pair"] + (M * P).sum() * MEMBRANE_OPS["triple"]
+                     + M.sum() * MEMBRANE_OPS["vertex"] + (P * (P - 1)).sum() * MEMBRANE_OPS["edge"]
+                     + n.sum() * MEMBRANE_OPS["slot"] + L * MEMBRANE_OPS["lipid"]
+                     + P.sum() * MEMBRANE_OPS["plane"])
+    K = dev.patch_cap
+    out_bytes = L * (1 + 3 * 4 + 2 * 12 + 4 + 5 * K) + 1 + sum(
+        len(lids) * (tl.shape[1] - 2) * 4 for sp, lids in spec.sp_lipids.items()
+        for tl, _ in spec.sp_tails[sp])
+    nbytes = coords.shape[0] * (coords.shape[1] * 12 + 2 * 36 + out_bytes)
+    return ops, nbytes
+
+
+def _membrane_system(device, workdir, label, side, n_frames, window):
+    """One membrane system through the whole check: stream passes, sweeps,
+    stages, the card against the CPU, no sync, bound, native."""
+    import torch
+
+    from molar_tpu_torch import convert
+    from molar_tpu_torch import workloads as wl
+    from molar_tpu_torch.membrane import MembraneDevice
+    from molar_tpu_torch.membrane import device as mdev
+    from molar_tpu_torch.membrane.device import to_numpy
+    from molar_tpu_torch.tasks.trajectory import TrajectoryReader, decode_window_coords
+
+    from torch_scenes import membrane_diffs, membrane_within_bars
+
+    bilayer = wl.synth_bilayer(side, side)
+    spec = bilayer.spec
+    path = os.path.join(workdir, f"{label}.xtc")
+    wl.write_membrane_xtc(bilayer, path, n_frames)
+    t0 = time.perf_counter()
+    dev = MembraneDevice(spec, bilayer.coords, bilayer.box, engine="device", device=device)
+    t_build = time.perf_counter() - t0
+    cpu = MembraneDevice(spec, bilayer.coords, bilayer.box, engine="cpu")
+    if dev.patch_cap != cpu.patch_cap or dev.engine_resolved != "device":
+        raise AssertionError(f"{label}: patch caps {dev.patch_cap} / {cpu.patch_cap}")
+
+    # The timed passes through the user's entry point (engine "device").
+    wl.run_membrane(dev, path, window)
+    passes, checks = [], None
+    for _ in range(MEMBRANE_REPEATS):
+        frames, seconds, checks = wl.run_membrane(dev, path, window)
+        passes.append(frames / seconds)
+    if frames != n_frames:
+        raise AssertionError(f"{label}: {frames} frames")
+
+    # The window size, 3 passes each, as far as memory allows.
+    by_window = {}
+    for w in MEMBRANE_WINDOWS:
+        if w > n_frames:
+            continue
+        try:
+            fps = [f / s for f, s, _ in (wl.run_membrane(dev, path, w)
+                                         for _ in range(MEMBRANE_REPEATS))]
+            by_window[w] = (round(max(fps), 2), round(float(np.median(fps)), 2))
+        except torch.cuda.OutOfMemoryError:
+            by_window[w] = "out of memory"
+        torch.cuda.empty_cache()
+    phase("membrane_window_sweep", system=label, lipids=dev.n_lipids, frames=n_frames,
+          shipped=window, fps_best_median_by_window=repr(by_window))
+
+    host_windows = list(TrajectoryReader([path]).iter_windows(window, quantized=_wire(),
+                                                              subset=spec.subset))
+    dev_windows = [convert.transport_to_torch(w, device) for w in host_windows]
+    outs = [to_numpy(dev.window_fn(*w)) for w in dev_windows]
+    overflowed = int(sum(o["overflow"].sum() for o in outs))
+    if overflowed:
+        raise AssertionError(f"{label}: {overflowed} frames overflow patch_cap {dev.patch_cap}")
+
+    # The card against the CPU on the first and the last window.
+    t0 = time.perf_counter()
+    worst = {}
+    for k in sorted({0, len(host_windows) - 1}):
+        want = to_numpy(cpu.window_fn(*convert.transport_to_torch(host_windows[k], "cpu")))
+        diffs = membrane_diffs(want, outs[k], spec.sp_lipids)
+        if not membrane_within_bars(diffs):
+            raise AssertionError(f"{label}: window {k} on the card differs from the CPU: {diffs}")
+        worst = {key: max(worst.get(key, 0), v) for key, v in diffs.items()}
+    t_vs_cpu = time.perf_counter() - t0
+
+    # The element budget of a chunk: one resident window at each.
+    by_block = {}
+    shipped_block = mdev.BLOCK_ELEMS
+    if label == "membrane_large":
+        try:
+            for log2 in MEMBRANE_BLOCKS:
+                mdev.BLOCK_ELEMS = 1 << log2
+                torch.cuda.reset_peak_memory_stats()
+                try:
+                    ms = _cuda_ms(lambda: dev.window_fn(*dev_windows[0]), 2)
+                    by_block[log2] = (round(ms / window, 3),
+                                      round(torch.cuda.max_memory_allocated() / 2**30, 2))
+                except torch.cuda.OutOfMemoryError:
+                    by_block[log2] = "out of memory"
+                torch.cuda.empty_cache()
+        finally:
+            mdev.BLOCK_ELEMS = shipped_block
+        phase("membrane_block_sweep", system=label, shipped_log2=shipped_block.bit_length() - 1,
+              window=window, ms_per_frame_and_peak_gib_by_log2_elems=repr(by_block))
+
+    # One resident window by stage, the busy share, peak memory.
+    torch.cuda.reset_peak_memory_stats()
+    wall_ms, enqueue_ms, by_stage, n_ops, top = _workload_window(dev.window_fn, dev_windows[0],
+                                                                 MEMBRANE_STAGES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    prof_wall, prof_busy, _, _ = _device_profile(
+        lambda: [dev.window_fn(*w) for w in dev_windows[:2]])
+    no_sync_enqueue_ms = _no_sync_window(lambda *w: _membrane_flat(dev.window_fn(*w)),
+                                         dev_windows[0])
+
+    # The bound of the window function (rows in, outputs out) from this
+    # window's own patch counts.
+    flops, nbytes = _membrane_work(dev, decode_window_coords(dev_windows[0][0]))
+    bound = _bound(nbytes, flops)
+    device_ms = sum(by_stage.values())
+    stage_ms = {k: round(by_stage.get(k, 0.0) / window, 4)
+                for k in (*MEMBRANE_STAGES, "smooth.scatter", "curv_smooth", "outside")}
+    phase("membrane_path", system=label, lipids=dev.n_lipids, atoms=len(spec.subset),
+          frames=n_frames, window=window, wire=repr(_wire()), patch_cap=dev.patch_cap,
+          frames_overflowed=overflowed, build_s=round(t_build, 3),
+          e2e_fps=[round(p, 3) for p in passes], e2e_fps_best=max(passes),
+          e2e_fps_median=float(np.median(passes)),
+          window_wall_ms=wall_ms, window_host_enqueue_ms=enqueue_ms, window_device_ms=device_ms,
+          device_ms_per_frame=device_ms / window, stage_device_ms_per_frame=repr(stage_ms),
+          device_ops_per_frame=n_ops / window, top_device_ops=repr(top),
+          profiled_wall_ms=prof_wall, device_busy_ms=prof_busy,
+          device_busy_share=prof_busy / prof_wall, peak_memory_gib=round(peak_gib, 3),
+          windows_vs_cpu=len({0, len(host_windows) - 1}), worst_vs_cpu=repr(worst),
+          vs_cpu_s=round(t_vs_cpu, 3), no_sync_window=True,
+          no_sync_enqueue_ms=no_sync_enqueue_ms, scatter="gather over a reverse-slot table, "
+          "no atomics (replay equal)", ops_per_frame=flops / window,
+          bytes_per_frame=nbytes / window, bound_ms_per_frame=bound["bound_ms"] / window,
+          bound_by=bound["bound_by"], share_of_bound=bound["bound_ms"] / device_ms,
+          checks=repr(checks))
+
+    # The native program on the same decoded frames, after every device pass.
+    (decoded, _, _, _, _), = TrajectoryReader([path]).iter_windows(n_frames)
+    native = wl.run_native_membrane(spec, bilayer.box, decoded, workdir)
+    bad = wl.membrane_mismatches(checks, native)
+    phase("membrane_native", system=label, native_fps=native["fps"], frames=native["frames"],
+          native_checks=repr({k: native[k] for k in checks}), checks=repr(checks),
+          tol=repr(wl.MEMBRANE_TOL), mismatches=len(bad))
+    if bad or native["frames"] != n_frames:
+        raise AssertionError(f"{label}: check scalars off the native program's: {bad}")
+
+
+def phase_membrane_engine(device):
+    """The crossover the engine's floor comes from: one window of the
+    shipped size at each size, torch on the CPU (its threads printed)
+    against the card, host clock around ``compute_window``."""
+    import torch
+
+    from molar_tpu_torch import workloads as wl
+    from molar_tpu_torch.membrane import MembraneDevice
+    from molar_tpu_torch.tasks import engine
+
+    window = wl.MEMBRANE_WINDOW
+    rows = []
+    for side in MEMBRANE_ENGINE_SIDES:
+        b = wl.synth_bilayer(side, side)
+        frames = b.frames(window)[:, b.spec.subset]
+        card = MembraneDevice(b.spec, b.coords, b.box, engine="device", device=device)
+        cpu = MembraneDevice(b.spec, b.coords, b.box, engine="cpu")
+
+        def timed(dev, n):
+            sec = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                dev.compute_window(frames)
+                sec.append(time.perf_counter() - t0)
+            return float(np.median(sec))
+
+        timed(card, 1)
+        card_s = timed(card, 3)
+        cpu_s = timed(cpu, 1)  # (nothing to warm on the CPU: no compile, no graph)
+        work = card._per_frame_flops() * window
+        rows.append((work, cpu_s, card_s))
+        phase("membrane_engine", lipids=card.n_lipids, window=window, work=work,
+              cpu_fps=window / cpu_s, card_fps=window / card_s,
+              winner="cpu" if cpu_s < card_s else "device",
+              pick_engine=engine.pick_engine(card._per_frame_flops(), window),
+              cpu_threads=torch.get_num_threads())
+    cpu_wins = [w for w, c, g in rows if c < g]
+    card_wins = [w for w, c, g in rows if c >= g]
+    if not card_wins:
+        raise AssertionError("the CPU beats the card at every size of the engine sweep")
+    above = min(card_wins)
+    below = max((w for w in cpu_wins if w < above), default=None)
+    floor = above / 2 if below is None else (below * above) ** 0.5
+    phase("membrane_engine_floor", shipped=engine.DEVICE_FLOPS_FLOOR, from_sweep=floor,
+          cpu_wins_up_to=below, card_wins_from=above,
+          shipped_agrees=all((engine.pick_engine(w / window, window) == "device") == (c >= g)
+                             for w, c, g in rows))
+
+
+def phase_membrane(device, workdir):
+    """The membrane path on both of the reference's systems, then the
+    engine sweep. No CUDA kernel of the port runs on this path."""
+    from molar_tpu_torch import workloads as wl
+
+    _reset_launches()
+    for label, (side, n_frames) in MEMBRANE_SYSTEMS.items():
+        _membrane_system(device, workdir, label, side, n_frames,
+                         min(wl.MEMBRANE_WINDOW, n_frames))
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"the membrane path launched kernels {launches}")
+    phase_membrane_engine(device)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=256)
@@ -1698,25 +2094,37 @@ def main() -> int:
     device, name, _ = phase_device(port)
     native_exe = phase_build()
     sys.path.insert(0, str(HERE / "tests"))
-    stats = phase_kernel_vs_plain(device)
+    seconds = {}
+
+    def timed(label, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        return out
+
+    stats = timed("kernel_vs_plain", phase_kernel_vs_plain, device)
     from molar_tpu_torch import build
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="smoke_", dir=build.BUILD_DIR)
+    headline_path = os.path.join(workdir, "traj.xtc")
     try:
-        launches, model, window, ghost, native_within0 = phase_main_path(
-            device, args, native_exe, workdir)
-        phase_stages(model, window)
-        stats["within_rows"] = phase_rows_vs_plain(device)
-        launches["within_rows"], rows_model, rows_window = phase_rows_path(
-            device, args, os.path.join(workdir, "traj.xtc"), ghost, native_within0, model, window)
-        phase_stages(rows_model, rows_window)
-        phase_dodecahedron(device, workdir)
-        wl_system, wl_path, wl_meta = phase_workloads(device, workdir)
-        phase_host_stream(device, args, os.path.join(workdir, "traj.xtc"), wl_system, wl_path)
-        phase_sasa(device, workdir, wl_system, wl_meta)
+        launches, model, window, ghost, native_within0 = timed(
+            "main_path", phase_main_path, device, args, native_exe, workdir)
+        timed("stages_ghost", phase_stages, model, window)
+        stats["within_rows"] = timed("rows_vs_plain", phase_rows_vs_plain, device)
+        launches["within_rows"], rows_model, rows_window = timed(
+            "rows_path", phase_rows_path, device, args, headline_path, ghost, native_within0,
+            model, window)
+        timed("stages_rows", phase_stages, rows_model, rows_window)
+        timed("dodecahedron", phase_dodecahedron, device, workdir)
+        wl_system, wl_path, wl_meta = timed("workloads", phase_workloads, device, workdir)
+        timed("host_stream", phase_host_stream, device, args, headline_path, wl_system, wl_path)
+        timed("sasa", phase_sasa, device, workdir, wl_system, wl_meta)
+        timed("membrane", phase_membrane, device, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    phase("phase_seconds", **seconds)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "molar_tpu"))
     if leaked:
         raise AssertionError(f"the port imported JAX-side modules: {leaked[:5]}")

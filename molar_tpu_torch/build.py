@@ -1,6 +1,6 @@
 """Build the port's native pieces from the repository's own sources.
 
-Four artifacts, each built at first use into ``build/molar_tpu_torch/``
+Five artifacts, each built at first use into ``build/molar_tpu_torch/``
 (listed in ``.gitignore``) and rebuilt when a source is newer:
 
 * ``libmolar_kernels.so`` — the CUDA kernels in ``csrc/*.cu``, each source
@@ -15,7 +15,10 @@ Four artifacts, each built at first use into ``build/molar_tpu_torch/``
 * ``native_workloads`` — ``benchmarks/native_workloads.cpp`` linked with the
   codec: the single-core C++ reference of the selection workloads
   (``native_workloads <which> <xtc> <meta> <max_frames> <dcd_out>``, one
-  JSON line a workload with ``fps`` and ``check``).
+  JSON line a workload with ``fps`` and ``check``);
+* ``native_membrane`` — ``benchmarks/native_membrane.cpp``: the single-core
+  C++ reference of the membrane workload (``native_membrane <sidecar>``,
+  one JSON line with ``fps`` and the three check scalars).
 
 Every build failure raises :class:`BuildError`. Outputs are written to a
 temporary name and renamed into place, so concurrent builds (test
@@ -39,6 +42,7 @@ KERNEL_SOURCES = [PKG_DIR / "csrc" / name
 CODEC_SOURCE = REPO_DIR / "molar_tpu" / "native" / "xtc_codec.cpp"
 BASELINE_SOURCE = REPO_DIR / "benchmarks" / "native_baseline.cpp"
 WORKLOADS_SOURCE = REPO_DIR / "benchmarks" / "native_workloads.cpp"
+MEMBRANE_SOURCE = REPO_DIR / "benchmarks" / "native_membrane.cpp"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -164,9 +168,8 @@ def build_codec() -> pathlib.Path:
     return out
 
 
-def _build_native(name: str, source: pathlib.Path) -> pathlib.Path:
+def _build_native(name: str, *srcs: pathlib.Path) -> pathlib.Path:
     out = BUILD_DIR / name
-    srcs = [source, CODEC_SOURCE]
     if _stale(out, srcs):
         _compile([_gxx(), "-O3", "-std=c++17"], srcs, out)
     return out
@@ -174,10 +177,16 @@ def _build_native(name: str, source: pathlib.Path) -> pathlib.Path:
 
 def build_native_baseline() -> pathlib.Path:
     """The single-core C++ headline reference (``bench.py``'s denominator)."""
-    return _build_native("native_baseline", BASELINE_SOURCE)
+    return _build_native("native_baseline", BASELINE_SOURCE, CODEC_SOURCE)
 
 
 def build_native_workloads() -> pathlib.Path:
     """The single-core C++ reference of the selection workloads
     (``benchmarks/workloads.py``'s denominator, built with its flags)."""
-    return _build_native("native_workloads", WORKLOADS_SOURCE)
+    return _build_native("native_workloads", WORKLOADS_SOURCE, CODEC_SOURCE)
+
+
+def build_native_membrane() -> pathlib.Path:
+    """The single-core C++ reference of the membrane workload
+    (``benchmarks/workloads.py``'s ``run_native_membrane``, its flags)."""
+    return _build_native("native_membrane", MEMBRANE_SOURCE)

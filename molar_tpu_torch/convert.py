@@ -75,7 +75,7 @@ def from_numpy(ref_coords, masses, protein_idx, box_matrix, cutoff, caps, dims, 
 
 def workload_from_numpy(name: str, system, device):
     """Build the selection workload ``name`` (one of
-    ``molar_tpu_torch.workloads.WORKLOADS``) on ``device`` from a
+    ``molar_tpu_torch.workloads.WORKLOADS`` but ``membrane``) on ``device`` from a
     :class:`~molar_tpu_torch.workloads.System` of numpy arrays -> (module,
     subset): the module's buffers index the rows of ``subset``, the sorted
     atom indices its windows ship."""
@@ -84,8 +84,9 @@ def workload_from_numpy(name: str, system, device):
     from .ops.neighbor import estimate_caps, grid_dims, grid_dims_for
     from .ops.sasa_lr import neighbor_lists
 
-    if name not in wl.WORKLOADS:
-        raise ValueError(f"workload must be one of {tuple(wl.WORKLOADS)}, got {name!r}")
+    if name not in wl.WORKLOADS or name == "membrane":
+        raise ValueError(f"workload must be one of {tuple(wl.WORKLOADS)} but membrane (a "
+                         f"MembraneDevice of a Bilayer), got {name!r}")
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), dtype=FLOAT)
@@ -140,3 +141,44 @@ def workload_from_numpy(name: str, system, device):
         model = {"ca_rmsd": ca_rmsd, "com_splits": com_splits, "contacts": contacts,
                  "sasa": sasa}[name]()
     return model.to(device), subset
+
+
+def membrane_from_reference(dev):
+    """The static structure of a reference ``MembraneDevice`` (JAX package)
+    as a :class:`~molar_tpu_torch.membrane.spec.MembraneSpec`, and its
+    ``patch_cap`` -> (spec, patch_cap). Read by attribute, without an
+    import of the reference, so that tests can build both packages on one
+    problem: ``subset``, ``_first``, ``_atom_first``, ``_masses``, the
+    ``_head`` / ``_mid`` / ``_tail`` pairs, ``species_names``,
+    ``_sp_lipids``, ``_sp_tails``, ``species_of``, ``_triclinic``,
+    ``options`` and the group memberships of its ``membrane``."""
+    import dataclasses
+
+    from .membrane.spec import MembraneSpec
+    from .membrane.stats import MembraneOptions
+
+    names = [f.name for f in dataclasses.fields(MembraneOptions)]
+    options = MembraneOptions(**{k: getattr(dev.options, k) for k in names})
+
+    def pair(p):
+        return tuple(np.asarray(a, np.int32) for a in p)
+
+    spec = MembraneSpec(
+        subset=np.asarray(dev.subset),
+        first=np.asarray(dev._first, np.int32),
+        atom_first=np.asarray(dev._atom_first, np.int32),
+        masses=np.asarray(dev._masses, np.float32),
+        head=pair(dev._head),
+        mid=pair(dev._mid),
+        tail=pair(dev._tail),
+        species_names=list(dev.species_names),
+        sp_lipids={sp: np.asarray(a, np.int32) for sp, a in dev._sp_lipids.items()},
+        sp_tails={sp: [(np.asarray(tl, np.int32), tuple(int(o) for o in orders))
+                       for tl, orders in tails] for sp, tails in dev._sp_tails.items()},
+        species_of=np.asarray(dev.species_of, np.int32),
+        triclinic=bool(dev._triclinic),
+        options=options,
+        groups={name: [int(i) for i in gr.lipid_ids]
+                for name, gr in dev.membrane.groups.items()},
+    )
+    return spec, int(dev.patch_cap)

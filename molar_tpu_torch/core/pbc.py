@@ -94,6 +94,24 @@ class PeriodicBox:
             for i in range(3)
         ])
 
+    def shortest_vector(self, vec) -> np.ndarray:
+        """Minimum-image displacements of (..., 3) vectors under full PBC,
+        in float32 as ``molar_tpu``'s ``PeriodicBox.shortest_vector``: the
+        fractional round, then the shortest pruned correction where it is
+        strictly shorter."""
+        v = np.asarray(vec, dtype=np.float32)
+        frac = _mat3_np(self.inv, v)
+        start = _mat3_np(self.matrix, frac - np.round(frac))
+        if not self.corrections.shape[0]:
+            return start
+        cands = start[..., None, :] + self.corrections
+        n2 = np.sum(cands * cands, axis=-1)
+        best = np.argmin(n2, axis=-1)
+        cand_best = np.take_along_axis(cands, best[..., None, None], axis=-2)[..., 0, :]
+        cand_n2 = np.take_along_axis(n2, best[..., None], axis=-1)[..., 0]
+        shorter = cand_n2 < np.sum(start * start, axis=-1)
+        return np.where(shorter[..., None], cand_best, start)
+
     def padded_corrections(self) -> np.ndarray:
         """(26, 3) corrections, zero-padded, whatever the box kind."""
         out = np.zeros((N_TRIC_CANDIDATES, 3), dtype=np.float32)
@@ -101,6 +119,14 @@ class PeriodicBox:
         if k:
             out[:k] = self.corrections
         return out
+
+
+def _mat3_np(m: np.ndarray, vecs: np.ndarray) -> np.ndarray:
+    """``m @ v`` for (..., 3) numpy row vectors, elementwise."""
+    x, y, z = vecs[..., 0], vecs[..., 1], vecs[..., 2]
+    return np.stack([m[0, 0] * x + m[0, 1] * y + m[0, 2] * z,
+                     m[1, 0] * x + m[1, 1] * y + m[1, 2] * z,
+                     m[2, 0] * x + m[2, 1] * y + m[2, 2] * z], axis=-1)
 
 
 def mat3_apply(m: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""The selection workloads on torch: CA-RMSD, per-residue COM and gyration,
-protein-ligand contact lists, the three fused into one window program, and
-the per-residue exact Lee-Richards SASA time series.
+"""The workloads on torch: CA-RMSD, per-residue COM and gyration,
+protein-ligand contact lists, the three fused into one window program, the
+per-residue exact Lee-Richards SASA time series, and the membrane analysis
+of a synthetic bilayer.
 
 The port of ``benchmarks/workloads.py``'s ``wl_ca_rmsd``, ``wl_com_splits``,
 ``wl_contacts``, ``wl_fused`` and ``wl_sasa``: a solvated protein whose
@@ -15,6 +16,11 @@ index arithmetic and need no selection language: protein atoms
 ``0..n_protein-1`` named N, CA, C, O in turn (mass 12, a residue every 4
 atoms), then water OW, HW1, HW2 in turn (masses 16, 1, 1); the stand-in
 ligand is the first 50 water oxygens.
+
+The membrane workload (``wl_membrane(device=True)``) runs on its own
+system, a flat bilayer (:func:`synth_bilayer`), through
+``membrane.MembraneDevice``, and is held against
+``benchmarks/native_membrane.cpp`` on the same decoded frames.
 """
 
 from __future__ import annotations
@@ -32,6 +38,9 @@ from torch import nn
 from torch.profiler import record_function
 
 from . import build, convert, headline
+from .io.xtc import XtcHandler
+from .membrane import MembraneDevice, MembraneOptions, MembraneSpec, SpeciesTemplate
+from .membrane.device import to_numpy
 from .ops import sasa_lr
 from .ops.measure import dense_segment_com_gyration, dense_segment_sum, fit_rmsd
 from .ops.neighbor import contact_pairs_dense_window, contact_pairs_window
@@ -43,7 +52,7 @@ from .tasks.trajectory import (
 
 #: The workloads :func:`run` knows, and the name the native program gives each.
 WORKLOADS = {"ca_rmsd": "ca_rmsd", "com_splits": "com_gyr", "contacts": "contacts",
-             "fused": "fused", "sasa": "sasa"}
+             "fused": "fused", "sasa": "sasa", "membrane": "membrane"}
 
 CUTOFF = 0.4          # nm, the contact distance
 MAX_PAIRS = 1 << 14   # pair-list capacity a frame
@@ -62,6 +71,20 @@ PROBE_NM = 0.14
 #: decode the same float32 frames; summation order and float64 arithmetic
 #: differ (``benchmarks/workloads.py``'s ``CHECK_RTOL``).
 CHECK_RTOL = 2e-3
+#: The membrane check scalars against the native program's, label ->
+#: (rtol, atol) (``benchmarks/workloads.py``'s ``MEMBRANE_TOL``): curvature
+#: is ~0 on a flat bilayer, so its bound is led by atol.
+MEMBRANE_TOL = {
+    "check_area": (1e-2, 0.0),
+    "check_mean": (5e-2, 5e-4),
+    "check_order": (5e-2, 2e-3),
+}
+#: Frames a window of the membrane stream when none is asked for. From a
+#: sweep on an NVIDIA H100 80GB HBM3 (700 W; ``chip_smoke.py``), medians of
+#: 3 passes at 4 / 8 / 16 / 32 / 64 frames: 72 lipids 193 / 342 / 713 / 858
+#: / 1,376 fps (a window costs ~15 ms of host enqueue whatever its length),
+#: 4,608 lipids 86 / 95 / 100 / 104 fps (to 32, the file's length).
+MEMBRANE_WINDOW = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,12 +305,43 @@ class Sasa(nn.Module):
             return dense_segment_sum(areas, self.idx, self.w), overflow
 
 
-def _checks(name: str, outs) -> dict:
+def _membrane_checks(spec, outs) -> dict:
+    """``check_area`` / ``check_mean`` / ``check_order`` of a membrane
+    stream's window outputs (numpy): means over frames x valid lipids, as
+    ``native_membrane.cpp`` prints them. Raises when no lipid is valid in
+    the whole stream (an empty accumulation would time nothing)."""
+    n_valid = 0
+    a_sum = m_sum = o_sum = 0.0
+    o_n = 0
+    for o in outs:
+        v = np.asarray(o["valid"], bool)  # (B, L)
+        n_valid += int(v.sum())
+        a_sum += float(np.asarray(o["area"])[v].sum())
+        m_sum += float(np.asarray(o["mean_curv"])[v].sum())
+        for sp in spec.species_names:
+            vsp = v[:, spec.sp_lipids[sp]]  # (B, n_sp)
+            for t in o["order"][sp]:
+                t = np.asarray(t)
+                o_sum += float(np.where(vsp[..., None], t, 0.0).sum())
+                o_n += int(vsp.sum()) * t.shape[-1]
+    if n_valid == 0:
+        raise AnalysisError(
+            "membrane workload: ZERO valid lipids across the whole stream — "
+            "trivially empty accumulation; the fps would measure nothing"
+        )
+    return {"check_area": a_sum / n_valid, "check_mean": m_sum / n_valid,
+            "check_order": (o_sum / o_n) if o_n else 0.0}
+
+
+def _checks(name: str, outs, spec=None) -> dict:
     """The check scalars of a stream's per-window results, as the native
     program defines them: mean RMSD; mean over frames of the mean
-    per-residue gyration; mean contact count; mean total area a frame.
-    Raises on a pair-list overflow, on a stream without a single contact
-    and on a frame without area."""
+    per-residue gyration; mean contact count; mean total area a frame; the
+    membrane's three means (``spec`` its :class:`MembraneSpec`). Raises on
+    a pair-list overflow, on a stream without a single contact, on a frame
+    without area and on a membrane stream without a valid lipid."""
+    if name == "membrane":
+        return _membrane_checks(spec, outs)
     cols = [torch.cat(col).cpu().numpy() for col in zip(*outs)]
     if name == "sasa":
         total = cols[0].sum(axis=1)
@@ -321,6 +375,9 @@ def run(name: str, system: System, xtc: str, window: int, device):
     ``sasa`` window whose lists overflow is run again at the next of
     :data:`SASA_TIERS` capacity tiers, and the last tier's overflow
     raises. Returns (frames, seconds of the stream, check scalars)."""
+    if name == "membrane":
+        return run_membrane(MembraneDevice(system.spec, system.coords, system.box,
+                                           device=device), xtc, window)
     model, subset = convert.workload_from_numpy(name, system, device)
     reader = TrajectoryReader([xtc])
     frames, outs = 0, []
@@ -388,3 +445,153 @@ def native_mismatches(checks: dict, native: dict, rtol: float = CHECK_RTOL) -> l
     native program's, as ``"key: got vs want"`` strings."""
     return [f"{k}: {v} vs {native[k]}" for k, v in checks.items()
             if abs(v - native[k]) > rtol * abs(native[k])]
+
+
+# ---------------------------------------------------------------- membrane
+
+
+@dataclasses.dataclass(frozen=True)
+class Bilayer:
+    """A flat bilayer as numpy arrays: ``coords`` (n, 3) f32, ``box`` (3,
+    3) f32, and the membrane's static structure ``spec``."""
+
+    coords: np.ndarray
+    box: np.ndarray
+    spec: MembraneSpec
+
+    def frames(self, n_frames: int) -> np.ndarray:
+        """``n_frames`` frames, each the coordinates plus its own 0.01 nm
+        noise from ``default_rng(0)`` (``wl_membrane``'s draws)."""
+        rng = np.random.default_rng(0)
+        return np.stack([self.coords + rng.normal(0, 0.01, self.coords.shape).astype(np.float32)
+                         for _ in range(n_frames)])
+
+
+def synth_bilayer(nx: int = 6, ny: int = 6) -> Bilayer:
+    """``benchmarks/workloads.py``'s ``wl_membrane`` system: two leaflets
+    of ``nx`` x ``ny`` lipids 0.8 nm apart, head planes 3.0 nm apart, each
+    lipid the atoms P, G, C1-C4 of mass 12 along z, box ``(0.8 nx, 0.8 ny,
+    6)``; options cutoff 2.0 nm, ``scdcorr``, one group "all", head "name
+    P", mid "name G", the tail C1-C2-C3-C4."""
+    spacing, z_mid = 0.8, 3.0
+    coords = []
+    for zdir in (1.0, -1.0):
+        for i in range(nx):
+            for j in range(ny):
+                x, y = i * spacing, j * spacing
+                for k in range(6):
+                    coords.append([x, y, z_mid + zdir * (1.5 - 0.3 * k)])
+    coords = np.asarray(coords, np.float32)
+    box = np.diag([nx * spacing, ny * spacing, 6.0]).astype(np.float32)
+    options = MembraneOptions(cutoff=2.0, order_type="scdcorr", groups=["all"], lipids={
+        "LIP": {"whole": "resname LIP", "head": "name P", "mid": "name G",
+                "tails": ["C1-C2-C3-C4"]}})
+    n_lipids = 2 * nx * ny
+    spec = MembraneSpec.from_templates(
+        {"LIP": SpeciesTemplate(head=(0,), mid=(1,), tails=(((2, 3, 4, 5), (1, 1, 1)),))},
+        [("LIP", 6 * i, 6) for i in range(n_lipids)],
+        np.full(len(coords), 12.0, np.float32), box, options,
+        groups={"all": list(range(n_lipids))})
+    return Bilayer(coords, box, spec)
+
+
+def write_membrane_xtc(bilayer: Bilayer, path: str, n_frames: int) -> None:
+    """The bilayer's :meth:`Bilayer.frames` as an XTC file."""
+    with XtcHandler(path, "w") as w:
+        for k, frame in enumerate(bilayer.frames(n_frames)):
+            w.write_raw(frame, bilayer.box, step=k, time=float(k))
+
+
+class _BoxChecked:
+    """``reader``'s windows, each window's boxes passed to ``check`` first,
+    on the decode thread (an error reaches the consumer as that window)."""
+
+    def __init__(self, reader, check):
+        self.reader = reader
+        self.check = check
+        self.timings = reader.timings
+
+    def iter_windows(self, *args, **kwargs):
+        for window in self.reader.iter_windows(*args, **kwargs):
+            self.check(window[1])
+            yield window
+
+
+def run_membrane(dev: MembraneDevice, xtc: str, window: int = 0):
+    """The membrane workload through ``dev``: ``xtc``'s windows of
+    ``window`` frames (:data:`MEMBRANE_WINDOW` when 0) of the spec's rows;
+    each window's outputs come back to the host and are folded into
+    ``dev``'s group statistics before the next is read. -> (frames,
+    seconds, check scalars)."""
+    window = window or MEMBRANE_WINDOW
+    t0 = time.perf_counter()
+    dev.resolve_engine(window)
+    pipe = WindowPipeline(_BoxChecked(TrajectoryReader([xtc]), dev.check_boxes), window,
+                          dev.window_fn, dev.device, quantized=trajectory.WIRE,
+                          subset=dev.subset)
+    frames, outs = 0, []
+    for ids, res in pipe.run():
+        res = to_numpy(res)
+        dev.accumulate(res)
+        outs.append(res)
+        frames += len(ids)
+    seconds = time.perf_counter() - t0
+    return frames, seconds, _checks("membrane", outs, dev.spec)
+
+
+def write_membrane_native(spec: MembraneSpec, box, frames, path: str) -> None:
+    """The sidecar ``benchmarks/native_membrane.cpp`` reads: the static
+    structure of a single-species membrane, its options, the box diagonal
+    and ``frames`` (full-system coordinates, the spec's rows taken here),
+    byte for byte as ``benchmarks/workloads.py``'s
+    ``_write_membrane_native``."""
+    sp = spec.species_names[0]
+    tl, orders = spec.sp_tails[sp][0]
+    with open(path, "wb") as f:
+        def i32(v):
+            f.write(struct.pack("<i", int(v)))
+
+        def ivec(a):
+            a = np.ascontiguousarray(a, np.int32)
+            i32(a.size)
+            f.write(a.tobytes())
+
+        i32(0x4D454D42)
+        i32(len(spec.subset))
+        i32(spec.n_lipids)
+        i32(len(frames))
+        ivec(spec.first)
+        ivec(spec.atom_first)
+        f.write(np.ascontiguousarray(spec.masses, np.float32).tobytes())
+        for idx, seg in (spec.head, spec.mid, spec.tail):
+            ivec(idx)
+            ivec(seg)
+        i32(tl.shape[1])
+        ivec(tl)
+        ivec(np.asarray(orders))
+        opt = spec.options
+        diag = np.diag(np.asarray(box))
+        code = {"sz": 0, "scd": 1, "scdcorr": 2}[opt.order_type]
+        f.write(np.asarray([opt.cutoff, diag[0], diag[1], diag[2], opt.max_smooth_iter,
+                            opt.n_shells_smoothing, code], np.float32).tobytes())
+        w = np.stack([c[spec.subset] for c in frames]).astype(np.float32)
+        f.write(np.ascontiguousarray(w).tobytes())
+
+
+def run_native_membrane(spec: MembraneSpec, box, frames, workdir: str) -> dict:
+    """``benchmarks/native_membrane.cpp`` on ``frames`` (its sidecar written
+    into ``workdir``) -> its JSON record (``fps``, ``check_area``,
+    ``check_mean``, ``check_order``). Run it after the device passes."""
+    exe = build.build_native_membrane()
+    path = os.path.join(workdir, "membrane.bin")
+    write_membrane_native(spec, box, frames, path)
+    out = subprocess.run([str(exe), path], check=True, capture_output=True, text=True,
+                         timeout=1800).stdout
+    return json.loads(out.splitlines()[-1])
+
+
+def membrane_mismatches(checks: dict, native: dict) -> list[str]:
+    """The membrane check scalars outside :data:`MEMBRANE_TOL` of the
+    native program's, as ``"key: got vs want"`` strings."""
+    return [f"{k}: {checks[k]} vs {native[k]}" for k, (rtol, atol) in MEMBRANE_TOL.items()
+            if abs(checks[k] - native[k]) > atol + rtol * abs(native[k])]

@@ -165,6 +165,25 @@ def test_ring_waits_for_a_slots_event_before_reuse_and_only_then():
     assert log == [0, 1, 2, 3]
 
 
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+def test_ring_of_a_pipeline_never_reuses_a_buffer_before_its_copy(depth):
+    """At every queue depth the sweep tries, the ring a pipeline builds
+    (``_QUEUE_DEPTH + 1`` buffers) hands out a buffer again only after the
+    event of its last copy has been waited on, and the bytes of every
+    window whose copy has not been waited on are intact."""
+    log, live = [], {}
+    ring = traj.StagingRing(depth + 1, pin=False)
+    for k in range(3 * (depth + 1)):
+        ring.begin()
+        assert log == list(range(max(0, k - depth)))
+        for j, a in live.items():
+            if j not in log:
+                assert (a == j).all(), (j, k)
+        live[k] = ring((16,), np.float32)
+        live[k][...] = k
+        ring.end(FakeEvent(log, k))
+
+
 class _CountingPool(io_xtc.ThreadPoolExecutor):
     made = 0
     shut = 0

@@ -3,8 +3,10 @@
 registration. A subprocess with both blocked imports every module of the
 port and runs the headline slice at a tiny size on the CPU, through the
 ghost and row routes and, on a rhombic dodecahedron, the correction path,
-the selection workloads (the SASA one among them) over subset windows, and
-``ops/sasa_lr`` and ``ops/sasa`` on a small cluster; a static scan finds no JAX or ``molar_tpu`` import in the port or in
+the selection workloads (the SASA one among them) over subset windows,
+``ops/sasa_lr`` and ``ops/sasa`` on a small cluster, and the membrane
+pipeline (``membrane/*``) with ``tasks/engine`` on a small bilayer; a
+static scan finds no JAX or ``molar_tpu`` import in the port or in
 ``chip_smoke.py``.
 """
 
@@ -93,7 +95,8 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
         path = os.path.join(d, "w.xtc")
         wl.write_xtc(s, path, 10)
         assert auto_window(path, s.ca) == 10
-        got = {name: wl.run(name, s, path, 4, "cpu") for name in wl.WORKLOADS}
+        got = {name: wl.run(name, s, path, 4, "cpu") for name in wl.WORKLOADS
+               if name != "membrane"}
     assert all(n == 10 for n, _, _ in got.values())
     assert got["fused"][2]["check"] == got["ca_rmsd"][2]["check"] > 0
     assert got["fused"][2]["check_com"] == got["com_splits"][2]["check"] > 0
@@ -115,6 +118,24 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
     assert abs(float(sampled.sum()) - float(exact.sum())) < 0.03 * float(exact.sum())
     series = sasa_lr.SasaSeries(c, r - 0.14, extents=(2.0, 2.0, 2.0), n_slices=32, device="cpu")
     assert torch.allclose(series.update(c), exact, atol=1e-6)
+    # The membrane pipeline streamed over a small bilayer, and the engine.
+    from molar_tpu_torch.membrane import MembraneDevice
+    from molar_tpu_torch.tasks import engine
+    b = wl.synth_bilayer(3, 3)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "m.xtc")
+        wl.write_membrane_xtc(b, path, 4)
+        n, _, mchk = wl.run("membrane", b, path, 2, "cpu")
+    assert n == 4 and mchk["check_area"] > 0
+    memb = MembraneDevice(b.spec, b.coords, b.box, engine="auto")
+    mout = memb.compute_window(b.frames(2)[:, b.spec.subset])
+    assert memb.engine_resolved == "cpu" and mout["valid"].any()
+    memb.accumulate(mout)
+    assert memb.groups["all"].per_species["LIP"]["area"].n == 2
+    assert engine.pick_engine(1.0) == "cpu" and engine.engine_device("host").type == "cpu"
+    for name in ("membrane", "membrane.device", "membrane.spec", "membrane.stats",
+                 "tasks.engine"):
+        assert "molar_tpu_torch." + name in sys.modules, name
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "molar_tpu")
               and sys.modules[m] is not None]
     assert not leaked, leaked

@@ -498,3 +498,53 @@ def test_sasa_series_on_card(cuda_device):
     for c in coords:
         np.testing.assert_allclose(on_card.update(c).cpu().numpy(), on_cpu.update(c).numpy(),
                                    atol=2e-6, rtol=0)
+
+
+def _membrane_case(kind: str):
+    """A 72-lipid bilayer of the membrane workload with the options of
+    ``kind``, its spec, its box and a window of 6 frames."""
+    import dataclasses
+
+    from molar_tpu_torch import workloads as wl
+
+    b = wl.synth_bilayer(6, 6)
+    spec, box = b.spec, b.box
+    if kind == "smooth2_shells2":
+        spec = dataclasses.replace(spec, options=dataclasses.replace(
+            spec.options, max_smooth_iter=2, n_shells_smoothing=2))
+    if kind == "triclinic":
+        box = box.copy()
+        box[0, 1] = 0.9
+        spec = dataclasses.replace(spec, triclinic=True)
+    return spec, b.coords, box, b.frames(6)[:, spec.subset]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["workload", "smooth2_shells2", "triclinic"])
+def test_membrane_window_on_card_matches_cpu_without_sync(cuda_device, kind):
+    """The membrane window function on the card against the CPU (the bars
+    of ``torch_scenes.MEMBRANE_BARS``), with host syncs made errors."""
+    from molar_tpu_torch.convert import transport_to_torch
+    from molar_tpu_torch.membrane import MembraneDevice
+    from molar_tpu_torch.membrane.device import to_numpy
+
+    from torch_scenes import membrane_diffs, membrane_within_bars
+
+    spec, coords, box, frames = _membrane_case(kind)
+    cpu = MembraneDevice(spec, coords, box, engine="cpu")
+    card = MembraneDevice(spec, coords, box, device=cuda_device)
+    assert card.patch_cap == cpu.patch_cap
+    want = cpu.compute_window(frames)
+    boxes = np.broadcast_to(box, (len(frames), 3, 3)).astype(np.float32)
+    invs = np.linalg.inv(boxes.astype(np.float64)).astype(np.float32)
+    window = transport_to_torch((frames, boxes, invs), cuda_device)
+    card.window_fn(*window)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = card.window_fn(*window)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    diffs = membrane_diffs(want, to_numpy(got), spec.sp_lipids)
+    assert membrane_within_bars(diffs), diffs
+    assert want["valid"].any() and not want["overflow"].any()

@@ -35,7 +35,7 @@ import workloads as ref_wl  # noqa: E402
 
 N_ATOMS, N_PROTEIN, N_FRAMES = 2000, 400, 24
 RTOL = 1e-5
-NAMES = sorted(wl.WORKLOADS)
+NAMES = sorted(n for n in wl.WORKLOADS if n != "membrane")  # membrane: test_torch_membrane
 
 
 @pytest.fixture(scope="module")

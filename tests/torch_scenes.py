@@ -211,3 +211,45 @@ def brute_within(coords, src, tgt, matrix, cutoff: float, chunk: int = 64):
             np.minimum(best, np.einsum("ijk,ijk->ij", e, e), out=best)
         dmin[lo: lo + chunk] = np.sqrt(best.min(axis=1))
     return dmin <= cutoff, dmin
+
+
+# The bars of one membrane window's outputs against another's (the card
+# against the CPU; the port against the JAX package): (rtol, atol) of each
+# float output, compared on valid lipids only (an invalid lipid's area,
+# curvatures, normal and order come from an ill-conditioned fit that nothing
+# reads); ``thv`` on every lipid. Flags, counts and neighbour sets equal.
+MEMBRANE_BARS = {"area": (1e-5, 1e-6), "normal": (1e-5, 1e-6), "thv": (1e-5, 1e-6),
+                 "order": (1e-5, 1e-6), "mean_curv": (1e-4, 1e-5), "gauss_curv": (1e-4, 1e-5)}
+
+
+def membrane_diffs(want, got, sp_lipids) -> dict:
+    """Two membrane window outputs (numpy dicts) -> for each exact output
+    the number of entries that differ (``nb_sets``: lipids whose neighbour
+    id sets differ), for each float output the worst ``|got - want| / (atol
+    + rtol |want|)`` (at most 1 within :data:`MEMBRANE_BARS`)."""
+    out = {k: int((np.asarray(got[k]) != np.asarray(want[k])).sum())
+           for k in ("valid", "overflow", "n_neighbors", "nb_mask")}
+    gi, wi = np.asarray(got["nb_ids"]), np.asarray(want["nb_ids"])
+    gm, wm = np.asarray(got["nb_mask"]), np.asarray(want["nb_mask"])
+    out["nb_sets"] = sum(sorted(gi[f, i][gm[f, i]]) != sorted(wi[f, i][wm[f, i]])
+                         for f in range(gi.shape[0]) for i in range(gi.shape[1]))
+    v = np.asarray(want["valid"], bool)
+
+    def ratio(g, w, key, keep):
+        rtol, atol = MEMBRANE_BARS[key]
+        g, w = np.asarray(g, np.float64)[keep], np.asarray(w, np.float64)[keep]
+        return float((np.abs(g - w) / (atol + rtol * np.abs(w))).max(initial=0.0))
+
+    for key in ("area", "mean_curv", "gauss_curv", "normal"):
+        out[key] = ratio(got[key], want[key], key, v)
+    out["thv"] = ratio(got["thv"], want["thv"], "thv", slice(None))
+    out["order_tails"] = int({sp: len(t) for sp, t in got["order"].items()}
+                             != {sp: len(t) for sp, t in want["order"].items()})
+    out["order"] = max((ratio(g, w, "order", v[:, sp_lipids[sp]])
+                        for sp in want["order"]
+                        for g, w in zip(got["order"][sp], want["order"][sp])), default=0.0)
+    return out
+
+
+def membrane_within_bars(diffs: dict) -> bool:
+    return all(v <= (1.0 if k in MEMBRANE_BARS else 0) for k, v in diffs.items())
