@@ -45,6 +45,33 @@ def transport_to_torch(window, device, non_blocking: bool = False, alloc=None):
     return transport, conv(boxes), conv(invs)
 
 
+def topology_from_numpy(names, resnames, resid, resindex, chain, mass, charge, occupancy,
+                        bfactor, atomic_number, bonds=None):
+    """A :class:`~molar_tpu_torch.core.topology.Topology` from plain
+    per-atom arrays: ``names``/``resnames`` strings (at most 8 characters),
+    ``chain`` one-character strings, the numeric columns, and ``bonds``
+    ``(K, 2)`` atom index pairs (or None). The selection language's
+    "weights": tests pass the JAX package's topology through its columns."""
+    from .core.topology import Topology
+
+    n = len(names)
+    top = Topology(n)
+    top.name = top.name_pool.intern_all([str(s) for s in names])
+    top.resname = top.resname_pool.intern_all([str(s) for s in resnames])
+    top.resid = np.asarray(resid, np.int64).copy()
+    top.resindex = np.asarray(resindex, np.int32).copy()
+    top.chain = np.asarray(chain, dtype="U1").copy()
+    top.mass = np.asarray(mass, np.float32).copy()
+    top.charge = np.asarray(charge, np.float32).copy()
+    top.occupancy = np.asarray(occupancy, np.float32).copy()
+    top.bfactor = np.asarray(bfactor, np.float32).copy()
+    top.atomic_number = np.asarray(atomic_number, np.int16).copy()
+    if bonds is not None:
+        top.set_bonds(bonds)
+    top.check_sizes()
+    return top
+
+
 def from_numpy(ref_coords, masses, protein_idx, box_matrix, cutoff, caps, dims, device,
                search: str = "ghost"):
     """Build the headline :class:`~molar_tpu_torch.headline.FitWithinWindow`

@@ -1,3 +1,3 @@
-from .pbc import PeriodicBox, PeriodicBoxError, mat3_apply
+from .pbc import PBC_FULL, PBC_NONE, PbcDims, PeriodicBox, PeriodicBoxError, mat3_apply
 
-__all__ = ["PeriodicBox", "PeriodicBoxError", "mat3_apply"]
+__all__ = ["PBC_FULL", "PBC_NONE", "PbcDims", "PeriodicBox", "PeriodicBoxError", "mat3_apply"]

@@ -1,12 +1,15 @@
-"""Periodic box: the slice's subset of ``molar_tpu.core.pbc``.
+"""Periodic box: the port's subset of ``molar_tpu.core.pbc``.
 
 ``PeriodicBox`` is host-side numpy (column convention: the matrix columns are
-the box vectors, as in the reference). ``mat3_apply`` is the torch
+the box vectors, as in the reference). ``PbcDims`` says which axes are
+periodic (the selection language's ``pbc yyn``). ``mat3_apply`` is the torch
 elementwise 3x3 apply; torch tensors never go through ``molar_tpu``'s
 numpy/JAX array functions.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -17,6 +20,41 @@ N_TRIC_CANDIDATES = 26
 
 class PeriodicBoxError(ValueError):
     pass
+
+
+@dataclass(frozen=True)
+class PbcDims:
+    """Which of the three dimensions are periodic (``molar_tpu.core.pbc``'s)."""
+
+    x: bool = True
+    y: bool = True
+    z: bool = True
+
+    @staticmethod
+    def from_str(s: str) -> "PbcDims":
+        """Parse 'yyn' / '110'-style strings used by the selection language."""
+        s = s.strip().lower()
+        if len(s) != 3 or any(c not in "yn10" for c in s):
+            raise PeriodicBoxError(f"invalid pbc dims string: {s!r}")
+        return PbcDims(*(c in "y1" for c in s))
+
+    def as_tuple(self) -> tuple[bool, bool, bool]:
+        return (self.x, self.y, self.z)
+
+    def as_array(self) -> np.ndarray:
+        return np.array(self.as_tuple(), dtype=bool)
+
+    @property
+    def any(self) -> bool:
+        return self.x or self.y or self.z
+
+    @property
+    def all(self) -> bool:
+        return self.x and self.y and self.z
+
+
+PBC_FULL = PbcDims(True, True, True)
+PBC_NONE = PbcDims(False, False, False)
 
 
 def build_tric_corrections(matrix) -> np.ndarray:
@@ -94,15 +132,19 @@ class PeriodicBox:
             for i in range(3)
         ])
 
-    def shortest_vector(self, vec) -> np.ndarray:
-        """Minimum-image displacements of (..., 3) vectors under full PBC,
-        in float32 as ``molar_tpu``'s ``PeriodicBox.shortest_vector``: the
-        fractional round, then the shortest pruned correction where it is
-        strictly shorter."""
+    def shortest_vector(self, vec, pbc: PbcDims = PBC_FULL) -> np.ndarray:
+        """Minimum-image displacements of (..., 3) vectors, in float32 as
+        ``molar_tpu``'s ``PeriodicBox.shortest_vector``: the fractional round
+        on the periodic axes of ``pbc``, then, under full PBC only, the
+        shortest pruned correction where it is strictly shorter."""
         v = np.asarray(vec, dtype=np.float32)
         frac = _mat3_np(self.inv, v)
-        start = _mat3_np(self.matrix, frac - np.round(frac))
-        if not self.corrections.shape[0]:
+        if pbc.all:
+            frac = frac - np.round(frac)
+        elif pbc.any:
+            frac = np.where(pbc.as_array(), frac - np.round(frac), frac)
+        start = _mat3_np(self.matrix, frac)
+        if not self.corrections.shape[0] or not pbc.all:
             return start
         cands = start[..., None, :] + self.corrections
         n2 = np.sum(cands * cands, axis=-1)

@@ -58,6 +58,55 @@ def make_system(n_atoms: int, n_protein: int, box, seed: int = 0):
     return coords, masses
 
 
+# Residues the protein rows of :func:`label_topology` cycle through.
+_PROTEIN_RESIDUES = (
+    ("ALA", ("N", "H", "CA", "HA", "CB", "HB1", "HB2", "HB3", "C", "O")),
+    ("GLY", ("N", "H", "CA", "HA1", "HA2", "C", "O")),
+    ("SER", ("N", "H", "CA", "HA", "CB", "HB1", "HB2", "OG", "HG", "C", "O")),
+)
+
+
+# The fewest ions :func:`label_topology` adds (more fill what waters leave).
+_MIN_IONS = 10
+
+
+def label_topology(n_atoms: int, n_protein: int):
+    """A topology for :func:`make_system`'s rows: the first ``n_protein``
+    as protein residues (ALA, GLY, SER in turn, with their atom names; the
+    last one cut where the rows end), then SOL waters (OW, HW1, HW2), then
+    at least ten ions (NA and CL in turn) to fill the rows. Elements
+    and masses are guessed from the names, as a structure file's reader
+    does -> :class:`~molar_tpu_torch.core.topology.Topology`."""
+    from .convert import topology_from_numpy
+    from .core import periodic_table as pt
+
+    names, resnames, resid = [], [], []
+    r = 0
+    while len(names) < n_protein:
+        resname, atoms = _PROTEIN_RESIDUES[r % len(_PROTEIN_RESIDUES)]
+        r += 1
+        take = atoms[: n_protein - len(names)]
+        names += take
+        resnames += [resname] * len(take)
+        resid += [r] * len(take)
+    n_ions = _MIN_IONS + (n_atoms - n_protein - _MIN_IONS) % 3
+    n_water = (n_atoms - n_protein - n_ions) // 3
+    names += ["OW", "HW1", "HW2"] * n_water
+    resnames += ["SOL"] * (3 * n_water)
+    resid += [r + 1 + k // 3 for k in range(3 * n_water)]
+    ions = ["NA", "CL"] * n_ions
+    names += ions[:n_ions]
+    resnames += ions[:n_ions]
+    resid += [r + 1 + n_water + k for k in range(n_ions)]
+    chain = ["A"] * n_protein + ["W"] * (3 * n_water) + ["I"] * n_ions
+    guess = {key: pt.guess_element_from_name(*key) for key in set(zip(names, resnames))}
+    z = np.array([guess[key] for key in zip(names, resnames)])
+    resid = np.asarray(resid)
+    n = len(names)
+    return topology_from_numpy(names, resnames, resid, resid - 1, chain, pt.ELEMENT_MASSES[z],
+                               np.zeros(n), np.ones(n), np.zeros(n), z)
+
+
 def write_trajectory(path: str, coords0, box_matrix, n_frames: int, sigma: float = 0.02,
                      seed: int = 1) -> None:
     """Random-walk trajectory from ``coords0`` (``bench.py:make_trajectory``)."""

@@ -10,14 +10,23 @@ three wire forms (plain f32, raw i16 quantized ints, i8 frame-to-frame
 deltas); :func:`decode_window_coords` expands them on the device,
 bit-identical to the host float decode. The tunnel-only chunked forms of
 ``molar_tpu`` are not ported.
+
+:class:`WindowAnalysisTask` is the user-facing harness on top: the standard
+flags (:func:`build_arg_parser`; ``-b/-e`` take :class:`FrameSpec`'s
+suffixes), a structure file read into a
+:class:`~molar_tpu_torch.core.system.System`, and a window function of the
+task's own over device tensors, streamed through :class:`WindowPipeline`.
 """
 
 from __future__ import annotations
 
+import argparse
+import logging
 import queue
 import threading
 import time
-from typing import Callable, Optional, Sequence
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -49,27 +58,60 @@ AUTO_WINDOW_TARGET_BYTES = 40 << 20
 AUTO_WINDOW_MAX = 512
 
 
+log = logging.getLogger("molar_tpu_torch.analysis")
+
+
 class AnalysisError(RuntimeError):
     pass
 
 
+@dataclass
+class FrameSpec:
+    """Parsed -b/-e value: a global frame index, or a time (ps)."""
+
+    frame: Optional[int] = None
+    time: Optional[float] = None
+
+    @staticmethod
+    def parse(text: Optional[str]) -> "FrameSpec":
+        """``N`` or ``Nfr``: frame N; ``Nps`` / ``Nns`` / ``Nus``: time
+        (analysis_task.rs:82-110); None: no bound."""
+        if text is None:
+            return FrameSpec()
+        s = text.strip()
+        if s.endswith("fr"):
+            return FrameSpec(frame=int(s[:-2]))
+        for suffix, mult in (("ps", 1.0), ("ns", 1e3), ("us", 1e6)):
+            if s.endswith(suffix):
+                return FrameSpec(time=float(s[: -len(suffix)]) * mult)
+        return FrameSpec(frame=int(s))
+
+
+def _spec(bound: Union[None, int, FrameSpec]) -> FrameSpec:
+    if isinstance(bound, FrameSpec):
+        return bound
+    return FrameSpec() if bound is None else FrameSpec(frame=int(bound))
+
+
 class TrajectoryReader:
-    """Concatenated multi-file frame stream with begin/end/skip on global
-    frame indices (the skip phase carries across file boundaries)."""
+    """Concatenated multi-file frame stream with begin/end/skip. ``begin`` and
+    ``end`` (inclusive) are global frame indices or :class:`FrameSpec`s (a
+    frame index or a time in ps, against each frame's time); the skip phase
+    carries across file boundaries."""
 
     def __init__(
         self,
         paths: Sequence[str],
-        begin: Optional[int] = None,
-        end: Optional[int] = None,
+        begin: Union[None, int, FrameSpec] = None,
+        end: Union[None, int, FrameSpec] = None,
         skip: int = 1,
     ):
         self.paths = [str(p) for p in paths]
         for p in self.paths:
             if not p.lower().endswith(".xtc"):
                 raise NotImplementedError(f"only XTC trajectories are ported: {p}")
-        self.begin = begin
-        self.end = end
+        self.begin = _spec(begin)
+        self.end = _spec(end)
         self.skip = max(skip, 1)
         #: Host seconds of the windows read so far: the codec's decode, and
         #: packing its output into the wire form (gather, diff, cast).
@@ -96,10 +138,14 @@ class TrajectoryReader:
                 n = h.n_frames
                 ids = np.arange(fr_base, fr_base + n)
                 keep = np.ones(n, dtype=bool)
-                if self.begin is not None:
-                    keep &= ids >= self.begin
-                if self.end is not None:
-                    keep &= ids <= self.end
+                if self.begin.frame is not None:
+                    keep &= ids >= self.begin.frame
+                if self.begin.time is not None:
+                    keep &= h.times >= self.begin.time
+                if self.end.frame is not None:
+                    keep &= ids <= self.end.frame
+                if self.end.time is not None:
+                    keep &= h.times <= self.end.time
                 kept = np.nonzero(keep)[0]
                 phase = (-n_eligible) % self.skip
                 n_eligible += len(kept)
@@ -480,3 +526,107 @@ def run_with_overflow_retry(
                 f"the largest capacity tier {n_tiers - 1}"
             )
     return results, retried
+
+
+def build_arg_parser(description: str = "trajectory analysis") -> argparse.ArgumentParser:
+    """The reference TrajAnalysisArgs flag set (-f/-b/-e/--skip/--log) and
+    ``--window``. ``--mesh`` (frames sharded over several devices) is parsed
+    so that it can be refused: it is not ported."""
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("-f", "--files", nargs="+", required=True,
+                   help="structure file followed by trajectory file(s)")
+    p.add_argument("-b", "--begin", default=None, help="first frame (N, Nfr, Nps, Nns, Nus)")
+    p.add_argument("-e", "--end", default=None, help="last frame (same suffixes)")
+    p.add_argument("--skip", type=int, default=1, help="take every skip-th frame")
+    p.add_argument("--log", type=int, default=100, dest="log_every", help="progress period")
+    p.add_argument("--window", type=int, default=0,
+                   help="frames per device window (0 = auto_window from the stream's rows)")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="shard each window's frames over this many devices (not ported)")
+    return p
+
+
+class WindowAnalysisTask:
+    """Batched analysis harness: one window function over device tensors a
+    window of frames.
+
+    Subclass and implement:
+
+    * ``build(system) -> window_fn``: ``window_fn(coords (B, R, 3) f32,
+      boxes (B, 3, 3), invs (B, 3, 3))`` on :attr:`device` returns the
+      window's per-frame results (tensors, never read on the host inside);
+      ``R`` is ``len(self.subset)`` rows, or every atom when ``subset`` is
+      None. ``build`` may set ``self.subset`` (sorted atom indices) so that
+      windows ship only those rows;
+    * ``accumulate(frame_ids, results)``: host-side consumption of a window;
+    * optional ``post_process()``.
+
+    ``run(argv)`` parses the standard flags (:func:`build_arg_parser`),
+    reads the structure file (:meth:`System.from_file
+    <molar_tpu_torch.core.system.System.from_file>`) and streams the
+    trajectories through :class:`WindowPipeline` in the shipped wire form,
+    at ``--window`` or the window :func:`auto_window` picks for the
+    stream's rows. The window function runs on ``device`` (the first CUDA
+    device unless the caller passes another); the frames' times are not
+    shipped. A window whose searches overflow is the window function's to
+    flag and ``accumulate``'s to refuse.
+    """
+
+    task_name = "window analysis"
+    subset = None
+
+    def add_args(self, parser: argparse.ArgumentParser) -> None:
+        pass
+
+    def build(self, system):
+        raise NotImplementedError
+
+    def accumulate(self, frame_ids, results) -> None:
+        raise NotImplementedError
+
+    def post_process(self) -> None:
+        pass
+
+    def run(self, argv: Optional[Sequence[str]] = None, device=None) -> int:
+        """Parse ``argv``, build and stream -> the number of frames read."""
+        from ..config import require_cuda
+        from ..core.system import System
+
+        t_start = time.perf_counter()
+        parser = build_arg_parser(self.task_name)
+        self.add_args(parser)
+        args = parser.parse_args(argv)
+        if args.mesh:
+            raise NotImplementedError("--mesh: sharding a window's frames over several devices "
+                                      "is not ported; run on one device")
+        self.args = args
+        self.device = torch.device(device) if device is not None else require_cuda()
+        structure, *trajectories = args.files
+        paths = trajectories or [structure]
+        system = System.from_file(structure)
+        window_fn = self.build(system)
+        reader = TrajectoryReader(paths, begin=FrameSpec.parse(args.begin),
+                                  end=FrameSpec.parse(args.end), skip=args.skip)
+        self.window = auto_window(paths[0], self.subset, requested=args.window)
+        if not args.window:
+            log.info("auto window: %d frames", self.window)
+
+        def fn(transport, boxes, invs):
+            return window_fn(decode_window_coords(transport), boxes, invs)
+
+        pipeline = WindowPipeline(reader, self.window, fn, self.device, quantized=WIRE,
+                                  subset=self.subset)
+        n = 0
+        t0 = time.perf_counter()
+        for ids, results in pipeline.run():
+            self.accumulate(ids, results)
+            n += len(ids)
+            if args.log_every and n % args.log_every < len(ids):
+                log.info("%d frames, %.1f frames/s", n, n / (time.perf_counter() - t0))
+        self.post_process()
+        #: Host seconds of the last run: ``setup`` (flags, structure file,
+        #: ``build``), ``stream`` (the windows and ``post_process``), and
+        #: the pipeline's parts (:attr:`WindowPipeline.timings`).
+        self.timings = {"setup": t0 - t_start, "stream": time.perf_counter() - t0,
+                        **pipeline.timings}
+        return n

@@ -5,7 +5,9 @@ port and runs the headline slice at a tiny size on the CPU, through the
 ghost and row routes and, on a rhombic dodecahedron, the correction path,
 the selection workloads (the SASA one among them) over subset windows,
 ``ops/sasa_lr`` and ``ops/sasa`` on a small cluster, and the membrane
-pipeline (``membrane/*``) with ``tasks/engine`` on a small bilayer; a
+pipeline (``membrane/*``) with ``tasks/engine`` on a small bilayer, and the
+selection language (``selection/*``, the host modules it reads, ``io/gro``,
+``core/system``) through a ``WindowAnalysisTask`` on a GRO and an XTC; a
 static scan finds no JAX or ``molar_tpu`` import in the port or in
 ``chip_smoke.py``.
 """
@@ -135,6 +137,48 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
     assert engine.pick_engine(1.0) == "cpu" and engine.engine_device("host").type == "cpu"
     for name in ("membrane", "membrane.device", "membrane.spec", "membrane.stats",
                  "tasks.engine"):
+        assert "molar_tpu_torch." + name in sys.modules, name
+    # The selection language: a GRO and an XTC through a WindowAnalysisTask
+    # whose window function runs three tiers of FrameSelection.
+    from molar_tpu_torch.convert import topology_from_numpy
+    from molar_tpu_torch.core.state import State
+    from molar_tpu_torch.io.gro import write_gro
+    from molar_tpu_torch.selection import FrameSelection, SelectionExpr
+    from molar_tpu_torch.tasks.trajectory import WindowAnalysisTask
+    n = 600
+    names = ["CA", "CB", "N"] * 20 + ["OW", "HW1", "HW2"] * 180
+    resnames = ["ALA"] * 60 + ["SOL"] * 540
+    resid = np.concatenate([1 + np.arange(60) // 3, 21 + np.arange(540) // 3])
+    top = topology_from_numpy(names, resnames, resid, resid - 1, ["A"] * n, np.ones(n),
+                              np.zeros(n), np.ones(n), np.zeros(n), np.full(n, 6))
+    sc, _ = headline.make_system(n, 60, np.diag([3.0] * 3))
+    texts = ("name OW and within 0.5 pbc of protein", "same residue as (x < 1.0)", "name CA")
+
+    class Counts(WindowAnalysisTask):
+        def build(self, system):
+            self.sels = [FrameSelection(t, system.topology, system.state, device=self.device)
+                         for t in texts]
+            self.counts = []
+            return lambda c, b, i: self.sels[0].compiled(c, b, i)[0].sum(1)
+
+        def accumulate(self, ids, res):
+            self.counts += res.tolist()
+
+    with tempfile.TemporaryDirectory() as d:
+        gro, xtc = os.path.join(d, "conf.gro"), os.path.join(d, "traj.xtc")
+        write_gro(gro, top, State(coords=sc, box=PeriodicBox(np.diag([3.0] * 3))))
+        headline.write_trajectory(xtc, sc, np.diag([3.0] * 3), 5)
+        task = Counts()
+        assert task.run(["-f", gro, xtc], device="cpu") == 5
+        with XtcHandler(xtc) as h:
+            fr = h.read_frame(4)
+    st = State(coords=fr.coords, box=fr.box)
+    assert [s.tier for s in task.sels] == ["device", "host", "static"]
+    assert task.counts[4] == len(SelectionExpr(texts[0]).apply(top, st)) > 0
+    for name in ("selection", "selection.compiled", "selection.evaluator", "selection.parser",
+                 "selection.nodes", "core.topology", "core.interner", "core.periodic_table",
+                 "core.atom", "core.state", "core.system", "io.gro", "ops.neighbor_host",
+                 "ops.measure_host"):
         assert "molar_tpu_torch." + name in sys.modules, name
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "molar_tpu")
               and sys.modules[m] is not None]

@@ -10,7 +10,12 @@ windows of frames each in its own box, in the tiled and the block-per-cell
 launch), and require each mask, overflow flag and cell's member set to
 equal the plain twin's exactly; they also
 hold the triclinic correction path (plain torch) on the card against the
-CPU on a rhombic dodecahedron, with host syncs made errors, and the RMSD
+CPU on a rhombic dodecahedron, with host syncs made errors, the compiled
+selections of ``selection/compiled.py`` (window functions over a 4-frame
+window, in a cube and in a dodecahedron) against the same functions on the
+CPU, mask for mask, with host syncs made errors and one ``cell_bins`` and
+one ``within_ghost`` launch a ghost-route node, and at division ties (a
+0-d device divisor is a true division), and the RMSD
 fit against a float64 Kabsch with TF32 pinned off and deliberately on.
 They skip without a card. On the card, without the repository's conftest
 (which imports JAX):
@@ -30,8 +35,8 @@ from molar_tpu_torch.core.pbc import PeriodicBox
 from molar_tpu_torch.ops import neighbor, neighbor_ghost, neighbor_rows
 
 from torch_scenes import (
-    GHOST_SCENES, ROW_SCENES, TIE_MEMBERS, blocked_members, cell_members, dodeca_scene, scene,
-    window,
+    GHOST_SCENES, ROW_SCENES, SELECTION_TEXTS, TIE_MEMBERS, blocked_members, cell_members,
+    dodeca_scene, scene, selection_scene, window,
 )
 
 
@@ -548,3 +553,60 @@ def test_membrane_window_on_card_matches_cpu_without_sync(cuda_device, kind):
     diffs = membrane_diffs(want, to_numpy(got), spec.sp_lipids)
     assert membrane_within_bars(diffs), diffs
     assert want["valid"].any() and not want["overflow"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["box", "dodecahedron"])
+@pytest.mark.parametrize("text", SELECTION_TEXTS)
+def test_compiled_selection_on_card_matches_cpu(cuda_device, kind, text):
+    from molar_tpu_torch.core.state import State
+    from molar_tpu_torch.selection import FrameSelection
+
+    top, coords, boxes, invs = selection_scene(kind)
+    st0 = State(coords=coords[0], box=PeriodicBox(boxes[0]))
+    card = FrameSelection(text, top, st0, device=cuda_device)
+    cpu = FrameSelection(text, top, st0, device="cpu")
+    assert card.tier == cpu.tier
+    if card.tier != "device":
+        assert kind == "dodecahedron" and "yny" in text  # partial PBC, skewed box: host tier
+        return
+    window = [torch.from_numpy(a) for a in (coords, boxes, invs)]
+    on_card = [a.to(cuda_device) for a in window]
+    before = neighbor_ghost.cell_bins.launches, neighbor_ghost.within_ghost.launches
+    rows_before = neighbor_rows.within_rows.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        masks, overflow = card.compiled(*on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, want_ofl = cpu.compiled(*window)
+    k = card.compiled.ghost_nodes
+    assert (neighbor_ghost.cell_bins.launches - before[0],
+            neighbor_ghost.within_ghost.launches - before[1]) == (k, k)
+    assert neighbor_rows.within_rows.launches == rows_before
+    assert not overflow.any() and not want_ofl.any()
+    np.testing.assert_array_equal(masks.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_compiled_division_keeps_ties_on_card(cuda_device):
+    """A math constant is a 0-d device tensor, so ``x / 3`` is a true
+    division on the card: at the exact ties x = 1.5 (1.5 / 3 = 0.5), 2.0 and
+    3.3f (3.3f / 1.1f = 3 in float32) the card's masks equal the CPU's."""
+    from molar_tpu_torch.core.state import State
+    from molar_tpu_torch.selection import FrameSelection
+
+    top, coords, boxes, invs = selection_scene("box", n_frames=1)
+    coords[0, :5, 0] = [1.5, 2.0, 3.3, 1.5 + 2**-22, 2.0 - 2**-22]
+    st0 = State(coords=coords[0], box=PeriodicBox(boxes[0]))
+    three = torch.tensor(3.0, device=cuda_device)
+    assert torch.div(torch.tensor([1.5], device=cuda_device), three).item() == 0.5
+    window = [torch.from_numpy(a) for a in (coords, boxes, invs)]
+    for text in ("x / 3 <= 0.5", "x / 2 < 1.0", "x / 1.1 == 3.0", "x / 0.3 >= 5.0"):
+        card = FrameSelection(text, top, st0, device=cuda_device)
+        cpu = FrameSelection(text, top, st0, device="cpu")
+        got, _ = card.compiled(*(a.to(cuda_device) for a in window))
+        want, _ = cpu.compiled(*window)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=text)
+        assert want[0, :5].any(), text

@@ -253,3 +253,70 @@ def membrane_diffs(want, got, sp_lipids) -> dict:
 
 def membrane_within_bars(diffs: dict) -> bool:
     return all(v <= (1.0 if k in MEMBRANE_BARS else 0) for k, v in diffs.items())
+
+
+# Selections of the device tier held on the card against the CPU
+# (``tests/test_torch_kernels.py``) on :func:`selection_scene`: searches
+# under full, partial and no PBC, of a point, with the self flag, and the
+# math grammar.
+SELECTION_TEXTS = [
+    "name OW and within 0.5 pbc of protein",
+    "within 0.5 pbc of protein",
+    "resname SOL and 2.0 < z < 4.0",
+    "within 1.0 pbc of [2.0, 2.0, 2.0]",
+    "within 0.7 self of resid 3 or within 0.45 pbc yny of water",
+    "within 0.6 of resname LIG or within 0.8 of 1.0 1.0 1.0",
+    "protein and (x < 2.0 or not within 0.4 pbc self of resname LIG)",
+    "x * 2 >= y and -x + 2 > 1 or x ^ 2 > 4.0 and vdw < 0.16 or x / 3 <= 0.5"
+    " or sqrt(x^2 + y^2) < 2",
+]
+
+
+def selection_scene(kind: str = "box", n_frames: int = 4, seed: int = 0):
+    """A small solvated system with a topology: 36 protein residues (ALA /
+    GLY / LYS with realistic atom names) in chains A-C, 120 waters (SOL
+    OW/HW1/HW2), 4 ligands (LIG), and a window of ``n_frames`` frames ->
+    (topology, coords (B, N, 3) f32, boxes (B, 3, 3), invs). ``kind``
+    "box": a 4 nm cube whose sides change by U(0.97, 1.03) a frame, every
+    atom wrapped into its frame's box; "dodecahedron": a rhombic
+    dodecahedron of image distance 4 nm, scaled by 1 +- 1% a frame."""
+    from molar_tpu_torch.convert import topology_from_numpy
+    from molar_tpu_torch.core import periodic_table as pt
+
+    rng = np.random.default_rng(seed)
+    names, resnames, resid, chain, centres = [], [], [], [], []
+    kinds = [("ALA", ["N", "CA", "C", "O", "CB", "HB1"]), ("GLY", ["N", "CA", "C", "O", "HA2"]),
+             ("LYS", ["N", "CA", "C", "O", "CB", "NZ", "HZ1"])]
+    groups = [(ch, *kinds[rng.integers(3)], 0.15) for ch in "ABC" for _ in range(12)]
+    groups += [("W", "SOL", ["OW", "HW1", "HW2"], 0.05)] * 120
+    groups += [("L", "LIG", ["C1", "C2", "O1", "H1"], 0.1)] * 4
+    for r, (ch, rn, nms, spread) in enumerate(groups):
+        base = rng.uniform(0.2, 3.8, 3)
+        for nm in nms:
+            names.append(nm)
+            resnames.append(rn)
+            resid.append(r + 1)
+            chain.append(ch)
+            centres.append(base + rng.uniform(-spread, spread, 3))
+    n = len(names)
+    z = np.array([pt.guess_element_from_name(nm, rn) for nm, rn in zip(names, resnames)])
+    resid = np.asarray(resid)
+    top = topology_from_numpy(names, resnames, resid, resid - 1, chain,
+                              [pt.mass_of(int(k)) for k in z], rng.uniform(-1, 1, n),
+                              rng.uniform(0, 1, n), rng.uniform(0, 99, n), z)
+    coords0 = np.asarray(centres, np.float64)
+    noise = rng.normal(0, 0.05, (n_frames, n, 3))
+    noise[0] = 0
+    if kind == "box":
+        scale = np.concatenate([np.ones((1, 3)), rng.uniform(0.97, 1.03, (n_frames - 1, 3))])
+        sides = (4.0 * scale).astype(np.float32)
+        coords = ((coords0 + noise) * scale[:, None, :]).astype(np.float32) % sides[:, None, :]
+        boxes = np.stack([np.diag(s) for s in sides]).astype(np.float32)
+    elif kind == "dodecahedron":
+        scale = 1.0 + 0.01 * np.sin(np.arange(n_frames))
+        boxes = (dodecahedron(4.0)[None] * scale[:, None, None]).astype(np.float32)
+        coords = ((coords0 + noise) * scale[:, None, None]).astype(np.float32)
+    else:
+        raise KeyError(kind)
+    invs = np.linalg.inv(boxes.astype(np.float64)).astype(np.float32)
+    return top, coords.astype(np.float32), boxes, invs
