@@ -15,11 +15,14 @@ protein-ligand contact lists, the three fused) stream a 50,000-atom solvated
 protein over windows that carry only their selections' rows, the host side
 of the stream is measured part by part, the exact Lee-Richards SASA
 workload runs on the same system, the membrane pipeline runs on
-``benchmarks/workloads.py``'s two bilayers (72 and 4,608 lipids), and a
+``benchmarks/workloads.py``'s two bilayers (72 and 4,608 lipids), a
 ``WindowAnalysisTask`` counts VMD-like selections a frame on the headline's
-trajectory, written with a structure file. Weights do not exist here; the
-systems and their trajectories are made from seeds. Phases, one line each on stdout
-(the workloads a line each):
+trajectory, written with a structure file, espaloma charges a ligand
+library and a peptide, and trjconv writes the protein rows of the
+workloads' file to DCD, through the function and the ``molar-torch`` CLI.
+Weights do not exist here but espaloma's, whose model file is in the
+repository; the systems, molecules and trajectories are made from seeds.
+Phases, one line each on stdout (the workloads a line each):
 
 1. device: the card's name and power limit (``nvidia-smi``), the host's
    core count;
@@ -143,14 +146,33 @@ systems and their trajectories are made from seeds. Phases, one line each on std
    host enqueue and device ms a window by node, top device operations and
    busy share; the host tier (a dynamic ``same``) on 3 frames and its fps;
    the dodecahedron file's first window through the headline search
-   (correction route) equal phase 8's results.
+   (correction route) equal phase 8's results;
+14. espaloma path: the espaloma charge model (its widths fixed by the model
+   file) on 1,000 seeded drug-like ligands of 20-80 atoms and on a
+   120-residue ALA / GLY / SER / PHE peptide (``tests/torch_molecules.py``):
+   ``espaloma_charges`` on the card molecule by molecule, then the same
+   call part by part (featurise, H2D, forward, D2H, equilibrate), then the
+   numpy walk on the host; e and s within 1e-5 and charges within 1e-4 of
+   the numpy walk on every molecule, every total charge within 1e-4 of 0,
+   the card against the torch-CPU forward on 20 molecules (1e-5); the
+   molecules/s of both, the device ms and operations a molecule; the
+   peptide's device ms against its FLOP bound; then the crossover sweep
+   (peptides of 1 to 120 residues: the forward on the card against the
+   numpy walk, in this process and with one BLAS thread in a fresh one);
+15. trjconv path: phase 9's file (50,000 atoms, 1,024 frames) through
+   ``io.trjconv.trjconv`` with the protein rows (``resname ALA``, the
+   prefix decode and the contiguous slice), best of 3, its DCD within 1e-6
+   nm of ``native_workloads.cpp trjconv``'s; then ``molar-torch info``
+   (it must name the card; its lines printed) and ``molar-torch trjconv``
+   on a GRO of the same system with ``--select "resname ALA"``, whose DCD
+   must equal the function's byte for byte.
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: the ghost path must launch only the two ghost kernels,
 the rows path the binning kernel and the row kernel once a window each and
-never the ghost stencil, the dodecahedron, workloads, sasa and membrane
-paths none, and the selection path the two ghost kernels once a
-ghost-route within node a window.
+never the ghost stencil, the dodecahedron, workloads, sasa, membrane,
+espaloma and trjconv paths none, and the selection path the two ghost
+kernels once a ghost-route within node a window.
 
 Any failure raises, and then the script exits non-zero without its last
 line. The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -2359,6 +2381,342 @@ def phase_selection(device, args, workdir, headline_path, ghost, dodeca):
     return launches
 
 
+# ---------------------------------------------------------------- phase 14
+
+# The espaloma path: the real model (its widths are fixed by the file) on a
+# seeded corpus of drug-like ligands of 20-80 atoms and on one peptide
+# (tests/torch_molecules.py). The bars are tests/test_espaloma.py's.
+ESP_LIGANDS = 1000
+ESP_PEPTIDE_RESIDUES = 120
+ESP_VS_CPU = 20
+ESP_ES_TOL, ESP_Q_TOL = 1e-5, 1e-4
+# Forwards of the peptide replayed from a CUDA graph for its device time.
+ESP_PEPTIDE_REPLAYS = 20
+# Ligands whose forwards are profiled for the device operations a molecule.
+ESP_PROFILED = 100
+# Peptide lengths of the crossover sweep (card forward against numpy walk),
+# and the calls a point is the median of.
+ESP_SWEEP_RESIDUES = (1, 2, 4, 8, 16, 32, 64, 120)
+ESP_SWEEP_CALLS = 3
+# The numpy walk again in a fresh process whose BLAS has one thread: the
+# first ligands' walk, then the sweep's (JSON on its last line).
+ESP_ONE_THREAD_LIGANDS = 200
+ESP_ONE_THREAD_WALK = """
+import json, statistics, sys, time
+sys.path[:0] = sys.argv[1:3]
+from molar_tpu_torch.ff import espaloma
+from torch_molecules import ligand_corpus, peptide
+feats = [espaloma.featurize(*m) for m in ligand_corpus(int(sys.argv[3]))]
+t0 = time.perf_counter()
+for f, a in feats:
+    espaloma.run_gnn(f, a)
+out = {"ligands_s": time.perf_counter() - t0, "sweep_ms": {}}
+for r in json.loads(sys.argv[4]):
+    f, a = espaloma.featurize(*peptide(r))
+    ts = []
+    for _ in range(int(sys.argv[5])):
+        t0 = time.perf_counter()
+        espaloma.run_gnn(f, a)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    out["sweep_ms"][r] = statistics.median(ts)
+print(json.dumps(out))
+"""
+
+
+def _gnn_work(graph, n: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one forward at ``n`` atoms, counted from the
+    graph's shapes: 2mkc a product, one an element of an Add, Relu or Tanh,
+    none a Gather; the bytes are the inputs, the weights and the two
+    outputs, each once."""
+    shapes = {k: tuple(v.shape) for k, v in graph.initializers.items()}
+    shapes["features"], shapes["adjacency_mean"] = (n, 116), (n, n)
+    flops = 0
+    for node in graph.nodes:
+        ins = [shapes[i] for i in node.inputs]
+        if node.op_type == "MatMul":
+            (m, k), (_, c) = ins
+            out = (m, c)
+            flops += 2 * m * k * c
+        elif node.op_type == "Gather":
+            out = ins[0][:1]
+        else:
+            out = tuple(np.broadcast_shapes(*ins))
+            flops += int(np.prod(out))
+        shapes[node.outputs[0]] = out
+    weights = sum(v.nbytes for v in graph.initializers.values())
+    return flops, 4 * (n * 116 + n * n + 2 * n) + weights
+
+
+def _device_ops_ms(fn) -> tuple[int, float]:
+    """(device operations, their summed device ms) of one ``fn()``, read
+    from the second of two profiled passes: a trace can lack the first
+    device operations after the profiler starts (dozens, when other
+    profiles ran before in the process)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            with record_function("stage:read"):
+                fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA and e.name == "stage:read"
+               for e in prof.events()):
+            by_stage, n_ops = _stage_device_ms(prof, last_pass_from="read")
+            if n_ops:
+                return n_ops, by_stage.get("read", 0.0)
+    raise AssertionError(f"no device operation of the read pass in {PROFILE_TRIES} traces")
+
+
+def phase_espaloma(device):
+    """Phase 14: espaloma charges of the ligand corpus and the peptide on the
+    card, held against the numpy walk and the torch-CPU forward."""
+    import torch
+
+    from molar_tpu_torch.ff import espaloma
+
+    from torch_molecules import ligand_corpus, peptide
+
+    os.environ["MOLAR_ESPALOMA_BACKEND"] = "torch"
+    t0 = time.perf_counter()
+    corpus = ligand_corpus(ESP_LIGANDS)
+    t_corpus = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pep = peptide(ESP_PEPTIDE_RESIDUES)
+    pep_feat = espaloma.featurize(*pep)
+    t_pep_featurize = time.perf_counter() - t0
+    sizes = np.array([len(z) for z, _, _ in corpus])
+    n_charged = sum(bool(np.any(fc)) for _, fc, _ in corpus)
+    gnn, cpu_gnn = espaloma.load_gnn(device), espaloma.load_gnn("cpu")
+    _reset_launches()
+
+    # The user's call, molecule by molecule, on the card.
+    espaloma.espaloma_charges(*corpus[0], device=device)
+    t0 = time.perf_counter()
+    q_card = [espaloma.espaloma_charges(*m, device=device) for m in corpus]
+    t_card = time.perf_counter() - t0
+    # The same call part by part, each part over the whole corpus.
+    t0 = time.perf_counter()
+    feats = [espaloma.featurize(*m) for m in corpus]
+    t_featurize = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_in = [(torch.from_numpy(f).to(device), torch.from_numpy(a).to(device)) for f, a in feats]
+    torch.cuda.synchronize()
+    t_h2d = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = [gnn(*x) for x in dev_in]
+    torch.cuda.synchronize()
+    t_forward = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = [(e.cpu().numpy(), s.cpu().numpy()) for e, s in outs]
+    t_d2h = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q_split = [espaloma.equilibrate(e, s) for e, s in host]
+    t_equilibrate = time.perf_counter() - t0
+    # The numpy walk on the host in place of the card's part: the call
+    # with MOLAR_ESPALOMA_BACKEND=numpy is featurise + walk + equilibrate.
+    t0 = time.perf_counter()
+    walk = [espaloma.run_gnn(f, a) for f, a in feats]
+    t_walk = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q_numpy = [espaloma.equilibrate(e, s) for e, s in walk]
+    t_numpy = t_featurize + t_walk + time.perf_counter() - t0
+
+    err_es = max(max(float(np.abs(e - we).max()), float(np.abs(s - ws).max()))
+                 for (e, s), (we, ws) in zip(host, walk))
+    err_q = max(float(np.abs(q - w).max()) for q, w in zip(q_card, q_numpy))
+    err_split = max(float(np.abs(q - w).max()) for q, w in zip(q_split, q_card))
+    sum_q = max(abs(float(q.sum())) for q in q_card)
+    err_cpu = 0.0
+    for (f, a), (e, s) in list(zip(feats, host))[:ESP_VS_CPU]:
+        ce, cs = cpu_gnn(torch.from_numpy(f), torch.from_numpy(a))
+        err_cpu = max(err_cpu, float(np.abs(ce.numpy() - e).max()),
+                      float(np.abs(cs.numpy() - s).max()))
+
+    # Device time of the corpus's forwards (one CUDA graph of all of them),
+    # and the device operations of a profiled sample.
+    corpus_device_ms = _graph_ms(lambda: [gnn(*x) for x in dev_in], 1)
+    n_ops, busy_ms = _device_ops_ms(lambda: [gnn(*x) for x in dev_in[:ESP_PROFILED]])
+    flops = sum(_gnn_work(espaloma._graph(), int(n))[0] for n in sizes)
+
+    # The peptide: its charges, its device time against its bound.
+    pep_dev = tuple(torch.from_numpy(x).to(device) for x in pep_feat)
+    pe, ps = (t.cpu().numpy() for t in gnn(*pep_dev))
+    we, ws = espaloma.run_gnn(*pep_feat)
+    ce, cs = (t.numpy() for t in cpu_gnn(*(torch.from_numpy(x) for x in pep_feat)))
+    pq, wq = espaloma.equilibrate(pe, ps), espaloma.equilibrate(we, ws)
+    t0 = time.perf_counter()
+    pq_call = espaloma.espaloma_charges(*pep, device=device)
+    t_pep_call = time.perf_counter() - t0
+    pep_err_es = max(float(np.abs(pe - we).max()), float(np.abs(ps - ws).max()))
+    pep_err_cpu = max(float(np.abs(pe - ce).max()), float(np.abs(ps - cs).max()))
+    pep_err_q = max(float(np.abs(pq - wq).max()), float(np.abs(pq_call - wq).max()))
+    pep_ms = _graph_ms(lambda: gnn(*pep_dev), ESP_PEPTIDE_REPLAYS)
+    pep_flops, pep_bytes = _gnn_work(espaloma._graph(), len(pep[0]))
+    pep_bound = _bound(pep_bytes, pep_flops)
+    launches = _launches()
+
+    # The crossover: the forward on the card (host clock, to the result on
+    # the host) against the numpy walk, by peptide length.
+    sweep = {}
+    for r in ESP_SWEEP_RESIDUES:
+        f, a = espaloma.featurize(*peptide(r))
+        card_ms, walk_ms = [], []
+        for _ in range(ESP_SWEEP_CALLS):
+            t0 = time.perf_counter()
+            espaloma.run_gnn_torch(f, a, device)
+            card_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            espaloma.run_gnn(f, a)
+            walk_ms.append((time.perf_counter() - t0) * 1e3)
+        sweep[r] = (len(f), float(np.median(card_ms)), float(np.median(walk_ms)))
+    one_thread = json.loads(subprocess.run(
+        [sys.executable, "-c", ESP_ONE_THREAD_WALK, str(HERE), str(HERE / "tests"),
+         str(ESP_ONE_THREAD_LIGANDS), json.dumps(ESP_SWEEP_RESIDUES), str(ESP_SWEEP_CALLS)],
+        env=dict(os.environ, OPENBLAS_NUM_THREADS="1", OMP_NUM_THREADS="1",
+                 MKL_NUM_THREADS="1"),
+        check=True, capture_output=True, text=True, timeout=600).stdout.splitlines()[-1])
+    for r, (atoms, card_ms, walk_ms) in sweep.items():
+        phase("espaloma_crossover", residues=r, atoms=atoms, card_forward_ms=card_ms,
+              numpy_walk_ms=walk_ms, numpy_walk_one_blas_thread_ms=one_thread["sweep_ms"][str(r)])
+
+    n = len(corpus)
+    phase("espaloma", ligands=n, atoms_min=int(sizes.min()), atoms_max=int(sizes.max()),
+          atoms_mean=float(sizes.mean()), charged_ligands=n_charged,
+          corpus_s=round(t_corpus, 3),
+          card_molecules_per_s=n / t_card, numpy_molecules_per_s=n / t_numpy,
+          split_s=repr({"featurize": round(t_featurize, 4), "h2d": round(t_h2d, 4),
+                        "forward": round(t_forward, 4), "d2h": round(t_d2h, 4),
+                        "equilibrate": round(t_equilibrate, 4)}),
+          numpy_walk_s=round(t_walk, 4),
+          numpy_walk_one_blas_thread_s_per_molecule=one_thread["ligands_s"]
+          / ESP_ONE_THREAD_LIGANDS,
+          card_forward_s=round(t_forward, 4),
+          device_ms_per_molecule=corpus_device_ms / n,
+          busy_ms_per_molecule=busy_ms / ESP_PROFILED,
+          device_ops_per_molecule=n_ops / ESP_PROFILED, flops_per_molecule=flops / n,
+          max_abs_err_e_s_vs_numpy=err_es, max_abs_err_q_vs_numpy=err_q,
+          max_abs_err_split_vs_call=err_split, max_abs_sum_q=sum_q,
+          molecules_vs_cpu=ESP_VS_CPU, max_abs_err_e_s_vs_cpu=err_cpu, kernel_launches=launches)
+    phase("espaloma_peptide", residues=ESP_PEPTIDE_RESIDUES, atoms=len(pep[0]),
+          bonds=len(pep[2]), featurize_s=round(t_pep_featurize, 3),
+          call_s=round(t_pep_call, 4), device_ms=pep_ms,
+          flops=pep_flops, bytes=pep_bytes, bound_ms=pep_bound["bound_ms"],
+          bound_by=pep_bound["bound_by"],
+          fp32_share=pep_flops / F32_FLOP_PER_S / (pep_ms / 1e3),
+          max_abs_err_e_s_vs_numpy=pep_err_es, max_abs_err_e_s_vs_cpu=pep_err_cpu,
+          max_abs_err_q_vs_numpy=pep_err_q, sum_q=float(pq.sum()))
+    bad = [k for k, v, tol in (("e_s", err_es, ESP_ES_TOL), ("q", err_q, ESP_Q_TOL),
+                               ("split", err_split, ESP_Q_TOL), ("sum_q", sum_q, ESP_Q_TOL),
+                               ("cpu", err_cpu, ESP_ES_TOL), ("pep_e_s", pep_err_es, ESP_ES_TOL),
+                               ("pep_cpu", pep_err_cpu, ESP_ES_TOL),
+                               ("pep_q", pep_err_q, ESP_Q_TOL),
+                               ("pep_sum_q", abs(float(pq.sum())), ESP_Q_TOL)) if not v <= tol]
+    if bad or any(launches.values()) or not all(np.isfinite(q).all() for q in q_card):
+        raise AssertionError(f"espaloma path failed: {bad}, launches {launches}")
+    del os.environ["MOLAR_ESPALOMA_BACKEND"]
+
+
+# ---------------------------------------------------------------- phase 15
+
+TRJCONV_REPEATS = 3
+TRJCONV_SELECT = "resname ALA"  # wl_trjconv's selection: the protein rows
+
+
+def _workload_topology(system):
+    """Names for ``workloads.synth_system``'s rows: the protein as ALA
+    residues of N / CA / C / O (its CA atoms are rows 1, 5, ...), then SOL
+    waters of OW / HW1 / HW2."""
+    from molar_tpu_torch.convert import topology_from_numpy
+
+    n, npro = system.n_atoms, len(system.protein)
+    nw = n - npro
+    names = [("N", "CA", "C", "O")[k % 4] for k in range(npro)] + \
+        [("OW", "HW1", "HW2")[k % 3] for k in range(nw)]
+    resid = np.concatenate([system.segment_ids + 1,
+                            system.segment_ids[-1] + 2 + np.arange(nw) // 3])
+    z = [{"N": 7, "C": 6, "O": 8, "H": 1}[s[0]] for s in names]
+    return topology_from_numpy(names, ["ALA"] * npro + ["SOL"] * nw, resid, resid - 1,
+                               ["A"] * n, system.masses, np.zeros(n), np.ones(n), np.zeros(n),
+                               z)
+
+
+def _compare_dcd(a_path: str, b_path: str) -> float:
+    """Largest coordinate difference (nm) of two DCDs, frame by frame
+    (``benchmarks/workloads.py``'s ``_compare_dcd``); inf when the frame or
+    atom counts differ."""
+    from molar_tpu_torch.io.dcd import DcdHandler
+
+    with DcdHandler(a_path) as a, DcdHandler(b_path) as b:
+        if (a.n_frames, a.n_atoms) != (b.n_frames, b.n_atoms):
+            return float("inf")
+        return max(float(np.abs(a.read_frame(k).coords - b.read_frame(k).coords).max())
+                   for k in range(a.n_frames))
+
+
+def phase_trjconv_cli(workdir, system, path, meta):
+    """Phase 15: trjconv of phase 9's file against ``native_workloads
+    trjconv``, then the ``molar-torch`` CLI (``info``, ``trjconv`` on a GRO)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from molar_tpu_torch import build, cli
+    from molar_tpu_torch.core.pbc import PeriodicBox
+    from molar_tpu_torch.core.state import State
+    from molar_tpu_torch.io.gro import write_gro
+    from molar_tpu_torch.io.trjconv import trjconv
+
+    _reset_launches()
+    out = os.path.join(workdir, "trjconv.dcd")
+    seconds = []
+    for _ in range(TRJCONV_REPEATS):
+        t0 = time.perf_counter()
+        n = trjconv(path, out, system.protein)
+        seconds.append(time.perf_counter() - t0)
+    native_dcd = os.path.join(workdir, "native_trjconv.dcd")
+    native = json.loads(subprocess.run(
+        [str(build.build_native_workloads()), "trjconv", path, meta, "0", native_dcd],
+        check=True, capture_output=True, text=True, timeout=600).stdout.splitlines()[-1])
+    max_diff = _compare_dcd(out, native_dcd)
+
+    gro = os.path.join(workdir, "workloads.gro")
+    write_gro(gro, _workload_topology(system),
+              State(coords=system.coords, box=PeriodicBox(system.box)))
+    info = io.StringIO()
+    with contextlib.redirect_stdout(info):
+        info_rc = cli.main(["info"])
+    cli_dcd = os.path.join(workdir, "cli.dcd")
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        cli_rc = cli.main(["trjconv", "-s", gro, "-f", path, "-o", cli_dcd,
+                           "--select", TRJCONV_SELECT])
+    t_cli = time.perf_counter() - t0
+    with open(out, "rb") as a, open(cli_dcd, "rb") as b:
+        cli_equal = a.read() == b.read()
+    launches = _launches()
+    for line in info.getvalue().splitlines():
+        print(f"# info: {line}", flush=True)
+    phase("trjconv", atoms=system.n_atoms, rows=len(system.protein), frames=n,
+          fps=[round(n / s, 3) for s in seconds], fps_best=n / min(seconds),
+          native_fps=native["fps"], native_frames=native["frames"],
+          dcd_max_abs_diff_nm_vs_native=max_diff, dcd_bytes=os.path.getsize(out),
+          cli_rc=cli_rc, cli_s=round(t_cli, 3), cli_said=repr(said.getvalue().strip()),
+          cli_dcd_equal=cli_equal, info_rc=info_rc, kernel_launches=launches)
+    if (max_diff > 1e-6 or native["frames"] != n or info_rc or cli_rc or not cli_equal
+            or torch.cuda.get_device_name(0) not in info.getvalue() or any(launches.values())):
+        raise AssertionError(f"trjconv path failed: max diff {max_diff} nm, native frames "
+                             f"{native['frames']} vs {n}, info rc {info_rc}, cli rc {cli_rc}, "
+                             f"cli bytes equal {cli_equal}, launches {launches}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=256)
@@ -2399,6 +2757,8 @@ def main() -> int:
         timed("membrane", phase_membrane, device, workdir)
         launches_selection = timed("selection", phase_selection, device, args, workdir,
                                    headline_path, ghost, dodeca)
+        timed("espaloma", phase_espaloma, device)
+        timed("trjconv_cli", phase_trjconv_cli, workdir, wl_system, wl_path, wl_meta)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     phase("phase_seconds", **seconds)

@@ -16,10 +16,17 @@ the three fused, streamed over windows of the selections' rows, in plain
 torch (``ops.measure``, ``ops.neighbor.contact_pairs*``). And SASA: exact
 Lee-Richards (``ops.sasa_lr``: lists built on the device, the interval
 union by a sort and a running maximum), Shrake-Rupley (``ops.sasa``) and
-the per-residue SASA workload, in plain torch.
+the per-residue SASA workload, in plain torch. And the membrane pipeline
+(``membrane``), the selection language (``selection``) with
+``tasks.trajectory.WindowAnalysisTask``, espaloma partial charges
+(``ff.espaloma``: the model file's GNN as a torch module), trjconv
+(``io.trjconv`` over the XTC prefix decode and ``io.dcd``) and the
+``molar-torch`` command line (``cli``: ``info``, ``trjconv``).
 """
 
 from . import config
 from .config import FLOAT, INDEX, require_cuda
+
+__version__ = "0.5.0"
 
 __all__ = ["config", "FLOAT", "INDEX", "require_cuda"]

@@ -209,3 +209,13 @@ def membrane_from_reference(dev):
                 for name, gr in dev.membrane.groups.items()},
     )
     return spec, int(dev.patch_cap)
+
+
+def espaloma_from_numpy(initializers: dict, device):
+    """An :class:`~molar_tpu_torch.ff.espaloma.EspalomaGNN` on ``device``
+    whose buffers are ``initializers`` (name -> numpy array, e.g. the JAX
+    package's ``_graph().initializers``), over the node list of the port's
+    own model file."""
+    from .ff import espaloma
+
+    return espaloma.EspalomaGNN(espaloma._graph(), initializers, device=torch.device(device))

@@ -111,6 +111,48 @@ class PeriodicBox:
         self.inv = inv
         self.corrections = build_tric_corrections(m)
 
+    @staticmethod
+    def from_vectors_angles(a: float, b: float, c: float, alpha: float, beta: float,
+                            gamma: float) -> "PeriodicBox":
+        """Box from lengths (nm) and angles (degrees): alpha = angle(b, c),
+        beta = angle(a, c), gamma = angle(a, b); zero lengths and angles
+        below 60 degrees are refused (``molar_tpu``'s, in float64)."""
+        if a == 0.0 or b == 0.0 or c == 0.0:
+            raise PeriodicBoxError("zero length box vector")
+        if alpha < 60.0 or beta < 60.0 or gamma < 60.0:
+            raise PeriodicBoxError("box angle is < 60 deg")
+        m = np.zeros((3, 3), dtype=np.float64)
+        m[0, 0] = a
+        if alpha != 90.0 or beta != 90.0 or gamma != 90.0:
+            cosa = np.cos(np.radians(alpha)) if alpha != 90.0 else 0.0
+            cosb = np.cos(np.radians(beta)) if beta != 90.0 else 0.0
+            if gamma != 90.0:
+                sing, cosg = np.sin(np.radians(gamma)), np.cos(np.radians(gamma))
+            else:
+                sing, cosg = 1.0, 0.0
+            m[0, 1] = b * cosg
+            m[1, 1] = b * sing
+            m[0, 2] = c * cosb
+            m[1, 2] = c * (cosa - cosb * cosg) / sing
+            m[2, 2] = np.sqrt(c * c - m[0, 2] ** 2 - m[1, 2] ** 2)
+        else:
+            m[1, 1] = b
+            m[2, 2] = c
+        return PeriodicBox(m)
+
+    def to_vectors_angles(self) -> tuple[np.ndarray, np.ndarray]:
+        """(lengths, angles in degrees) as float32; 90 degrees for a pair
+        with a zero vector."""
+        m = self.matrix
+        lengths = np.linalg.norm(m, axis=0)
+        angles = np.full(3, 90.0)
+        for k, (i, j) in enumerate(((1, 2), (0, 2), (0, 1))):
+            ni, nj = lengths[i], lengths[j]
+            if ni * nj != 0.0:
+                cosang = float(m[:, i] @ m[:, j]) / float(ni * nj)
+                angles[k] = np.degrees(np.arccos(np.clip(cosang, -1.0, 1.0)))
+        return lengths.astype(np.float32), angles.astype(np.float32)
+
     @property
     def is_triclinic(self) -> bool:
         return bool((self.matrix - np.diag(np.diag(self.matrix))).any())

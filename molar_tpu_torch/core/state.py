@@ -1,20 +1,22 @@
-"""Per-frame host state: coordinates, velocities, forces, time, box.
+"""Per-frame host state, and a window of frames as tensors.
 
-The port's copy of ``molar_tpu.core.state.State`` (numpy only). The JAX
-package's ``FrameBatch`` pytree has no counterpart here: a window of frames
-is plain ``(B, N, 3)`` / ``(B, 3, 3)`` tensors on the card.
+``State`` is the port's copy of ``molar_tpu.core.state.State`` (numpy
+only). :class:`FrameBatch` is the counterpart of the JAX package's
+``FrameBatch`` pytree: the same fields as torch tensors, moved with
+:meth:`FrameBatch.to` (no pytree registration).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, fields
+from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from .pbc import PeriodicBox
 
-__all__ = ["State"]
+__all__ = ["State", "FrameBatch"]
 
 
 @dataclass
@@ -37,3 +39,61 @@ class State:
         if self.box is None:
             raise ValueError("operation requires a periodic box, but state has none")
         return self.box
+
+
+@dataclass
+class FrameBatch:
+    """A window of B frames as tensors: ``coords`` (B, N, 3), ``boxes`` /
+    ``box_invs`` (B, 3, 3), ``times`` (B,), ``valid`` (B,) bool (false on
+    the padded tail), ``corrections`` (B, 26, 3) zero-padded, present iff
+    a frame's box is triclinic."""
+
+    coords: torch.Tensor
+    boxes: torch.Tensor
+    box_invs: torch.Tensor
+    times: torch.Tensor
+    valid: torch.Tensor
+    corrections: Optional[torch.Tensor] = None
+
+    @property
+    def n_frames(self) -> int:
+        return self.coords.shape[0]
+
+    def to(self, device, non_blocking: bool = False) -> "FrameBatch":
+        """The same batch with every tensor on ``device``."""
+        return FrameBatch(**{
+            f.name: None if getattr(self, f.name) is None
+            else getattr(self, f.name).to(device, non_blocking=non_blocking)
+            for f in fields(self)})
+
+    @staticmethod
+    def from_states(states: Sequence[State], pad_to: Optional[int] = None) -> "FrameBatch":
+        """Stack host states into one batch on the CPU (``.to(device)`` ships
+        it), as the JAX package's ``from_states``: ``pad_to`` frames, the
+        tail repeating the last state's coordinates with the identity box,
+        time 0 and ``valid`` false; the identity box for a state without
+        one."""
+        b = len(states)
+        n = pad_to or b
+        if n < b:
+            raise ValueError("pad_to smaller than number of states")
+        coords = np.stack([s.coords for s in states])
+        if n > b:
+            coords = np.concatenate([coords, np.repeat(coords[-1:], n - b, axis=0)])
+        eye = np.eye(3, dtype=np.float32)
+        boxes = np.stack([s.box.matrix if s.box is not None else eye for s in states]
+                         + [eye] * (n - b))
+        invs = np.stack([s.box.inv if s.box is not None else eye for s in states]
+                        + [eye] * (n - b))
+        times = np.array([s.time for s in states] + [0.0] * (n - b), np.float32)
+        valid = np.array([True] * b + [False] * (n - b))
+        corrections = None
+        if any(s.box is not None and s.box.is_triclinic for s in states):
+            zero = np.zeros((26, 3), np.float32)
+            corrections = torch.from_numpy(np.stack(
+                [s.box.padded_corrections() if s.box is not None else zero for s in states]
+                + [zero] * (n - b)))
+        return FrameBatch(torch.from_numpy(coords.astype(np.float32, copy=False)),
+                          torch.from_numpy(boxes.astype(np.float32, copy=False)),
+                          torch.from_numpy(invs.astype(np.float32, copy=False)),
+                          torch.from_numpy(times), torch.from_numpy(valid), corrections)

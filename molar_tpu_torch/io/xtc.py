@@ -188,6 +188,36 @@ class XtcHandler:
         step, time, box9 = self._decode_at(int(self._offsets[i]), coords)
         return Frame(coords=coords, box=_box_from_rows(box9), time=time, step=step)
 
+    def decode_prefix(self, i: int, n_atoms: int, coords_out: Optional[np.ndarray] = None):
+        """Decode only the first ``n_atoms`` atoms of frame ``i`` (XDR3DFR is
+        a sequential per-atom stream, so a protein-first selection skips the
+        solvent tail) -> ``(coords (n_atoms, 3) f32, step, time, box9)``,
+        ``box9`` the header's box rows as stored. ``coords_out`` is an
+        optional reusable ``(n_atoms + PREFIX_SLACK, 3)`` f32 buffer (the
+        decoder may write up to :data:`PREFIX_SLACK` rows past ``n_atoms``);
+        the returned rows are a view of it."""
+        self._check_frame(i)
+        n_atoms = min(n_atoms, self._natoms)
+        if coords_out is None:
+            coords_out = np.empty((n_atoms + self.PREFIX_SLACK, 3), np.float32)
+        elif (coords_out.dtype != np.float32 or not coords_out.flags.c_contiguous
+              or coords_out.shape != (len(coords_out), 3)
+              or len(coords_out) < n_atoms + self.PREFIX_SLACK):
+            raise ValueError(f"coords_out must be a C-contiguous f32 array of at least "
+                             f"({n_atoms + self.PREFIX_SLACK}, 3)")
+        sticky = self._dialect()
+        off = int(self._offsets[i])
+        box9 = np.empty(9, dtype=np.float32)
+        step = ctypes.c_int32()
+        time = ctypes.c_float()
+        n = self._lib.xtc_decode_frame_prefix(
+            self._addr(off), len(self._mm) - off, coords_out.ctypes.data_as(_f32p), n_atoms,
+            box9.ctypes.data_as(_f32p), ctypes.byref(step), ctypes.byref(time), sticky,
+        )
+        if n != self._natoms:
+            raise MalformedFileError(f"xtc prefix decode failed at frame {i} in {self.path}")
+        return coords_out[:n_atoms], int(step.value), float(time.value), box9
+
     def _run(self, work, count: int) -> None:
         """``work(k)`` for every frame of a window, on the handler's pool
         (made at the first window that has more than one frame)."""

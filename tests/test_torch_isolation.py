@@ -7,8 +7,10 @@ the selection workloads (the SASA one among them) over subset windows,
 ``ops/sasa_lr`` and ``ops/sasa`` on a small cluster, and the membrane
 pipeline (``membrane/*``) with ``tasks/engine`` on a small bilayer, and the
 selection language (``selection/*``, the host modules it reads, ``io/gro``,
-``core/system``) through a ``WindowAnalysisTask`` on a GRO and an XTC; a
-static scan finds no JAX or ``molar_tpu`` import in the port or in
+``core/system``) through a ``WindowAnalysisTask`` on a GRO and an XTC, and
+espaloma charges (``ff/*``, ``ops/perception``), trjconv (``io/dcd``,
+``io/trjconv``) through the function and the ``molar-torch`` CLI, and a
+``FrameBatch``; a static scan finds no JAX or ``molar_tpu`` import in the port or in
 ``chip_smoke.py``.
 """
 
@@ -179,6 +181,55 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
                  "selection.nodes", "core.topology", "core.interner", "core.periodic_table",
                  "core.atom", "core.state", "core.system", "io.gro", "ops.neighbor_host",
                  "ops.measure_host"):
+        assert "molar_tpu_torch." + name in sys.modules, name
+    # espaloma charges of benzene: the torch forward on the CPU, the numpy
+    # walk, and written into a System's charge column.
+    import contextlib, io
+    import torch
+    from molar_tpu_torch import cli
+    from molar_tpu_torch.core.state import FrameBatch
+    from molar_tpu_torch.core.system import System
+    from molar_tpu_torch.ff import espaloma
+    from molar_tpu_torch.io.dcd import DcdHandler
+    from molar_tpu_torch.io.trjconv import trjconv
+    z = np.array([6] * 6 + [1] * 6)
+    bonds = [(0, 1, 2), (1, 2, 1), (2, 3, 2), (3, 4, 1), (4, 5, 2), (5, 0, 1)]
+    bonds += [(i, i + 6, 1) for i in range(6)]
+    q = espaloma.espaloma_charges(z, np.zeros(12, int), bonds, device="cpu")
+    os.environ["MOLAR_ESPALOMA_BACKEND"] = "numpy"
+    q_host = espaloma.espaloma_charges(z, np.zeros(12, int), bonds)
+    del os.environ["MOLAR_ESPALOMA_BACKEND"]
+    assert np.abs(q - q_host).max() < 1e-4 and abs(q.sum()) < 1e-4 and q[0] < 0 < q[6]
+    btop = topology_from_numpy(["C"] * 6 + ["H"] * 6, ["BEN"] * 12, np.ones(12), np.zeros(12),
+                               ["A"] * 12, np.ones(12), np.zeros(12), np.ones(12), np.zeros(12),
+                               z, [(i, j) for i, j, _ in bonds])
+    bsys = System(btop, State(coords=np.zeros((12, 3), np.float32)))
+    # The port's topology has no bond orders: every bond is single there.
+    q1 = espaloma.espaloma_charges(z, np.zeros(12, int), [(i, j, 1) for i, j, _ in bonds],
+                                   device="cpu")
+    assert np.array_equal(espaloma.apply_charges(bsys, device="cpu"), q1)
+    assert np.array_equal(bsys.topology.charge, q1) and np.abs(q1 - q).max() > 1e-3
+    # trjconv through the function and the CLI, read back; info; a FrameBatch.
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(out), \\
+            contextlib.redirect_stderr(out):
+        gro, xtc = os.path.join(d, "conf.gro"), os.path.join(d, "traj.xtc")
+        write_gro(gro, top, State(coords=sc, box=PeriodicBox(np.diag([3.0] * 3))))
+        headline.write_trajectory(xtc, sc, np.diag([3.0] * 3), 5)
+        a, b = os.path.join(d, "a.dcd"), os.path.join(d, "b.dcd")
+        assert trjconv(xtc, a, np.arange(60)) == 5
+        assert cli.main(["trjconv", "-s", gro, "-f", xtc, "-o", b, "--select",
+                         "resname ALA"]) == 0
+        assert open(a, "rb").read() == open(b, "rb").read()
+        with DcdHandler(a) as r:
+            assert r.n_frames == 5 and r.read_frame(4).coords.shape == (60, 3)
+        assert cli.main(["info"]) == (0 if torch.cuda.is_available() else 1)
+    assert "wrote 5 frames x 60 atoms" in out.getvalue()
+    fb = FrameBatch.from_states([State(coords=sc, box=PeriodicBox(np.diag([3.0] * 3)))] * 2,
+                                pad_to=3).to("cpu")
+    assert fb.n_frames == 3 and fb.valid.tolist() == [True, True, False]
+    for name in ("cli", "ff.espaloma", "ff.onnx_mini", "ops.perception", "io.dcd",
+                 "io.trjconv"):
         assert "molar_tpu_torch." + name in sys.modules, name
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "molar_tpu")
               and sys.modules[m] is not None]

@@ -15,8 +15,10 @@ selections of ``selection/compiled.py`` (window functions over a 4-frame
 window, in a cube and in a dodecahedron) against the same functions on the
 CPU, mask for mask, with host syncs made errors and one ``cell_bins`` and
 one ``within_ghost`` launch a ghost-route node, and at division ties (a
-0-d device divisor is a true division), and the RMSD
-fit against a float64 Kabsch with TF32 pinned off and deliberately on.
+0-d device divisor is a true division), the RMSD
+fit against a float64 Kabsch with TF32 pinned off and deliberately on, and
+the espaloma GNN forward on the card against the torch-CPU forward, its
+charges against the numpy walk with TF32 pinned off and deliberately on.
 They skip without a card. On the card, without the repository's conftest
 (which imports JAX):
 
@@ -610,3 +612,69 @@ def test_compiled_division_keeps_ties_on_card(cuda_device):
         want, _ = cpu.compiled(*window)
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=text)
         assert want[0, :5].any(), text
+
+
+def _espaloma_inputs():
+    """Features and adjacency of 20 corpus ligands and a 24-residue peptide."""
+    from molar_tpu_torch.ff import espaloma
+
+    from torch_molecules import ligand_corpus, peptide
+
+    return [espaloma.featurize(*m) for m in ligand_corpus(20) + [peptide(24)]]
+
+
+@pytest.mark.cuda
+def test_espaloma_forward_on_card_matches_cpu(cuda_device):
+    """The GNN forward on the card against the torch-CPU forward (e and s
+    within 1e-5), and ``espaloma_charges`` on the card against the numpy
+    walk (1e-4), with host syncs only where the call reads its result."""
+    from molar_tpu_torch.ff import espaloma
+
+    from torch_molecules import ligand_corpus
+
+    cpu, card = espaloma.load_gnn("cpu"), espaloma.load_gnn(cuda_device)
+    assert all(b.device.type == "cuda" for b in card.buffers())
+    worst = 0.0
+    for feat, adj in _espaloma_inputs():
+        args = torch.from_numpy(feat), torch.from_numpy(adj)
+        want = cpu(*args)
+        got = card(*(a.to(cuda_device) for a in args))
+        assert all(g.device.type == "cuda" and g.shape == (len(feat),) for g in got)
+        worst = max(worst, *(float((g.cpu() - w).abs().max()) for g, w in zip(got, want)))
+    assert worst <= 1e-5, worst
+    for z, fc, bonds in ligand_corpus(5):
+        want = espaloma.equilibrate(*espaloma.run_gnn(*espaloma.featurize(z, fc, bonds)))
+        got = espaloma.espaloma_charges(z, fc, bonds)
+        assert np.abs(got - want).max() <= 1e-4 and abs(got.sum()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_espaloma_tf32_on_card(cuda_device):
+    """How far TF32 moves the charges: the card's charges against the
+    numpy walk with TF32 pinned off and deliberately on (the pins are
+    restored), on 20 ligands and a 24-residue peptide. Pinned they stay
+    within the 1e-4 bar; with TF32 they leave it, so the pins stay."""
+    from molar_tpu_torch.ff import espaloma
+
+    card = espaloma.load_gnn(cuda_device)
+    inputs = _espaloma_inputs()
+    want = [espaloma.equilibrate(*espaloma.run_gnn(f, a)) for f, a in inputs]
+
+    def error():
+        worst = 0.0
+        for (f, a), w in zip(inputs, want):
+            e, s = card(torch.from_numpy(f).to(cuda_device), torch.from_numpy(a).to(cuda_device))
+            q = espaloma.equilibrate(e.cpu().numpy(), s.cpu().numpy())
+            worst = max(worst, float(np.abs(q - w).max()))
+        return worst
+
+    pinned = error()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = error()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    print(f"max abs charge error vs the numpy walk: pinned {pinned:.3e}, TF32 {tf32:.3e}")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert pinned <= 1e-4 < tf32

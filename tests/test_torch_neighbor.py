@@ -27,6 +27,17 @@ from molar_tpu_torch.ops import neighbor, neighbor_ghost
 from torch_scenes import SCENES, TIE_MEMBERS, scene
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain twins run many small torch ops; on a pool of threads they
+    crawl when the test workers share the cores. One thread for this
+    module, restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
 

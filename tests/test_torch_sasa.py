@@ -36,6 +36,17 @@ ATOL = 1e-5  # nm^2 an atom, against the JAX function
 HOST_RTOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain twins run many small torch ops; on a pool of threads they
+    crawl when the test workers share the cores. One thread for this
+    module, restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel_err(dev, host):
     scale = np.maximum(np.abs(host), 1e-3)
     return np.max(np.abs(dev - host) / scale)
