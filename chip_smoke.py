@@ -165,20 +165,40 @@ Phases, one line each on stdout (the workloads a line each):
    nm of ``native_workloads.cpp trjconv``'s; then ``molar-torch info``
    (it must name the card; its lines printed) and ``molar-torch trjconv``
    on a GRO of the same system with ``--select "resname ALA"``, whose DCD
-   must equal the function's byte for byte.
+   must equal the function's byte for byte;
+16. 1M path (run after 5): ``bench.py``'s 1,000,000-atom point (a
+   20,000-atom protein, a 21.544 nm box, 32 frames) through
+   ``headline.run`` at windows of 1, 2, 4, 8 and 16 frames (fps and the
+   decode alone), the cap tiers against every frame of its file, frames 0
+   / mid / last against the CPU and frame 0 against three runs of the
+   native program (best and median), one window by stage, and both ghost
+   kernels on that window against their twins, timed, with their bounds;
+17. grid contacts (run after 9): ``workloads.Contacts`` above
+   ``DENSE_LIMIT`` on phase 9's file (the 4,000 protein rows against the
+   first 1,000 water oxygens), the window at once against its frame loop
+   on the card (equal) and the CPU (pair sets of 32 frames), device and
+   enqueue ms and device operations a window, no host sync, fps; the
+   triclinic dense form on the dodecahedron's file, timed, against the CPU;
+18. mesh (run after 13): the headline window (64 and 63 frames) through a
+   ``MeshWindowRunner`` of ``frame_mesh()`` and of two shards on this
+   card, equal to the unsharded window; the stream through
+   ``headline.run(mesh=)`` equal to the main path; a ``WindowAnalysisTask``
+   with ``--mesh 2`` equal to one without; the runner's host ms a window.
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: the ghost path must launch only the two ghost kernels,
 the rows path the binning kernel and the row kernel once a window each and
 never the ghost stencil, the dodecahedron, workloads, sasa, membrane,
-espaloma and trjconv paths none, and the selection path the two ghost
-kernels once a ghost-route within node a window.
+espaloma and trjconv paths none, the selection path the two ghost
+kernels once a ghost-route within node a window, the 1M path the two
+ghost kernels at least once a window, and the mesh path once a shard a
+window.
 
 Any failure raises, and then the script exits non-zero without its last
 line. The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the per-kernel JSON record (launches on the main path and on the
-selection path, time, the plain twin's time and the bound, each per
-launch). The script needs a CUDA
+selection, 1M and mesh paths, time, the plain twin's time and the bound,
+each per launch, and the same on the 1M window). The script needs a CUDA
 device and imports no JAX.
 
 The system is ``bench.py``'s headline at its defaults and is not an option
@@ -774,7 +794,7 @@ def _stage_device_ms(prof, last_pass_from=None):
     return by_stage, len(ops)
 
 
-def phase_stages(model, window):
+def phase_stages(model, window, label="stages"):
     """One resident window through the steps of ``FitWithinWindow.forward``,
     stage by stage, on ``model``'s search route: host enqueue ms of each
     stage (host clock, no profiler, no synchronize inside the pass), device
@@ -822,7 +842,8 @@ def phase_stages(model, window):
     if not n_ops or device_ms["search"] <= 0:
         raise AssertionError("the profiler saw no device work in the window's stages")
     frames = window[1].shape[0]
-    phase("stages", route=m.search, frames=frames, wall_ms=wall,
+    phase(label, route=m.search, frames=frames,
+          atoms=decode_window_coords(window[0]).shape[1], wall_ms=wall,
           host_enqueue_ms=sum(host_ms.values()),
           device_ms=sum(device_ms.values()), device_ops=n_ops,
           device_ops_per_frame=n_ops / frames,
@@ -2717,6 +2738,429 @@ def phase_trjconv_cli(workdir, system, path, meta):
                              f"cli bytes equal {cli_equal}, launches {launches}")
 
 
+# ---------------------------------------------------------------- phase 16
+
+# bench.py's big point: 1,000,000 atoms at 100 atoms/nm^3 (a 21.544 nm
+# cube), a 20,000-atom protein ball, the 0.5 nm cutoff and the 0.02 nm walk;
+# 32 frames, the window sizes swept, 3 samples for the parity on the CPU
+# (frames 0 / mid / last) and 3 runs of the native program.
+MILLION_ATOMS = 1_000_000
+MILLION_PROTEIN = 20_000
+MILLION_BOX = 21.544
+MILLION_FRAMES = 32
+MILLION_WINDOWS = (1, 2, 4, 8, 16)
+MILLION_NATIVE_RUNS = 3
+
+
+def _ghost_kernels_at(coords, tgt, boxes, invs, dims, cap, tcap, n_atoms, label):
+    """The two ghost kernels on one resident window against their plain
+    twins on the same CUDA tensors (the whole search's masks, the binning
+    counts against ``torch.bincount``, the stencil against its twin on the
+    same records; all exact), each kernel's time (CUDA-graph replay), its
+    twin's, and its bound from this window's data -> kernel records."""
+    import torch
+
+    from molar_tpu_torch.ops import neighbor_ghost as ng
+    from molar_tpu_torch.ops.neighbor import _cutoff2, _search_args, within_mask_window
+
+    frames = coords.shape[0]
+    nx, ny, nz = dims
+    n_cells = nx * ny * nz
+    window = (coords, None, tgt, CUTOFF, boxes, invs, dims, cap, tcap)
+    masks, ofl = within_mask_window(*window)
+    pmasks, pofl = within_mask_window(*window, plain=True)
+    if ofl.any() or pofl.any() or not torch.equal(masks, pmasks):
+        raise AssertionError(f"{label}: kernels and plain twin disagree or overflow")
+    bins_args = (coords, None, tgt, boxes, invs, dims, cap, tcap)
+    src_rec, tgt_rec, counts, _ = ng.cell_bins(*bins_args)
+    for f in range(frames):
+        sa = _search_args(coords[f], None, tgt, boxes[f], invs[f], dims)
+        tflat = (sa[7] * ny + sa[8]) * nz + sa[9]
+        for k, flat in enumerate((sa[3], tflat)):
+            if not torch.equal(counts[f, k], torch.bincount(flat.long(), minlength=n_cells).int()):
+                raise AssertionError(f"{label} frame {f}: binning counts != bincount")
+    stencil_args = (src_rec, tgt_rec, counts, boxes, dims, cap, tcap, (True,) * 3,
+                    _cutoff2(CUTOFF), n_atoms)
+    kmask = ng.within_ghost(*stencil_args)
+    err = int((kmask.int() - ng._bins_stencil(*stencil_args).int()).abs().max())
+    if err or not torch.equal(kmask, masks):
+        raise AssertionError(f"{label}: stencil kernel != its twin on the same records")
+    runs = {k: [] for k in ("bins", "bins_plain", "stencil", "stencil_plain")}
+    for order in ((False, True), (True, False)):
+        for kernel in order:
+            if kernel:
+                runs["bins"].append(_graph_ms(lambda: ng.cell_bins(*bins_args), 10))
+                runs["stencil"].append(_graph_ms(lambda: ng.within_ghost(*stencil_args), 10))
+            else:
+                runs["bins_plain"].append(_cuda_ms(lambda: ng._cell_bins_plain(*bins_args), 1))
+                runs["stencil_plain"].append(_cuda_ms(lambda: ng._bins_stencil(*stencil_args),
+                                                      1))
+    ms = {k: float(np.mean(v)) for k, v in runs.items()}
+    n_pts = frames * (n_atoms + tgt.numel())
+    pairs, live_src, occupied = _window_work(counts, dims, cap, tcap)
+    coord_bytes = coords.numel() * 4 + tgt.numel() * 8 + 2 * boxes.numel() * 4
+    bins_bound = _bound(coord_bytes + n_pts * 16 + counts.numel() * 4 + frames, n_pts * 40)
+    stencil_bound = _bound((live_src + occupied) * 16 + counts.numel() * 4
+                           + boxes.numel() * 4 + frames * n_atoms, pairs * 9)
+    return {
+        "cell_bins": {"max_abs_err": 0.0, "ms": ms["bins"], "plain_ms": ms["bins_plain"],
+                      **bins_bound, "frames_per_launch": frames},
+        "within_ghost": {"max_abs_err": err, "ms": ms["stencil"],
+                         "plain_ms": ms["stencil_plain"], **stencil_bound,
+                         "frames_per_launch": frames, "candidate_pairs": pairs},
+    }
+
+
+def phase_million(device, args, native_exe, workdir):
+    """Phase 16: ``bench.py``'s 1M-atom point through ``headline.run`` (the
+    ghost route) at full width: the window sweep, the cap tiers re-measured
+    on this file, parity against the CPU and the native program, the native
+    program's best and median, one resident window by stage and both
+    kernels on it against their twins. Returns the kernels' records and
+    the path's launches at the shipped window."""
+    import torch
+
+    from molar_tpu_torch import convert, headline
+    from molar_tpu_torch.core.pbc import PeriodicBox
+    from molar_tpu_torch.io.xtc import XtcHandler
+    from molar_tpu_torch.ops.neighbor import estimate_caps, grid_dims_for
+    from molar_tpu_torch.tasks.trajectory import (TrajectoryReader, auto_window,
+                                                  decode_window_coords)
+
+    box = PeriodicBox(np.diag([MILLION_BOX] * 3))
+    coords0, masses = headline.make_system(MILLION_ATOMS, MILLION_PROTEIN, box.matrix)
+    pidx = np.arange(MILLION_PROTEIN)
+    ref, pmass = coords0[pidx], masses[pidx]
+    path = os.path.join(workdir, "million.xtc")
+    t0 = time.perf_counter()
+    headline.write_trajectory(path, coords0, box.matrix, MILLION_FRAMES)
+    t_write = time.perf_counter() - t0
+    del coords0
+    dims = grid_dims_for(box, CUTOFF)
+    caps0 = headline.base_caps(path, box.inv, dims, pidx)
+    shipped = auto_window(path)
+    tier0 = headline.caps_for(*caps0, 0)
+
+    # The cap tiers against every frame of this file.
+    worst = np.zeros(3, np.int64)
+    with XtcHandler(path) as h:
+        for k in range(MILLION_FRAMES):
+            worst = np.maximum(worst, estimate_caps(h.read_frame(k).coords, box.inv, dims, pidx,
+                                                    margin=1.0, round_to=1))
+
+    def run(window):
+        return headline.run(path, ref, pmass, pidx, box, CUTOFF, dims, caps0, window, device)
+
+    run(shipped)  # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    (ids, rmsd, count, check, retried), passes = _timed_passes(args.repeats,
+                                                              lambda: run(shipped))
+    launches = _launches()
+    n_windows = args.repeats * -(-MILLION_FRAMES // shipped)
+    if launches["within_rows"] or min(launches["cell_bins"], launches["within_ghost"]) < n_windows:
+        raise AssertionError(f"1M path: launches {launches} for {n_windows} windows")
+    if not np.array_equal(ids, np.arange(MILLION_FRAMES)):
+        raise AssertionError(f"1M stream returned frames {ids[:4]}... ({len(ids)})")
+    if not (np.isfinite(rmsd).all() and (count > 0).all()):
+        raise AssertionError("1M path: non-finite RMSD or empty within set")
+    sweep, retried_by_window, decode_fps = {}, {}, {}
+    for w in MILLION_WINDOWS:
+        if w == shipped:
+            sweep[w], retried_by_window[w] = passes, retried
+        else:
+            (wids, _, wcount, wcheck, wret), sweep[w] = _timed_passes(args.repeats,
+                                                                      lambda: run(w))
+            if not (np.array_equal(wids, ids) and np.array_equal(wcount, count)
+                    and np.array_equal(wcheck, check)):
+                raise AssertionError(f"1M path: window {w} gives other results")
+            retried_by_window[w] = wret
+        decode_fps[w] = MILLION_FRAMES / _decode_s(path, w, None, repeats=2)
+    medians = {w: float(np.median(v)) for w, v in sweep.items()}
+
+    # One resident window of the shipped size: stages, busy share, kernels.
+    windows = TrajectoryReader([path]).iter_windows(shipped, quantized=_wire())
+    dev_windows = [convert.transport_to_torch(w, device) for w, _ in zip(windows, range(2))]
+    resident_frames = sum(w[1].shape[0] for w in dev_windows)
+    del windows
+    model = convert.from_numpy(ref, pmass, pidx, box.matrix, CUTOFF, tier0, dims, device)
+    phase_stages(model, dev_windows[0], label="stages_million")
+    enqueue_ms = _no_sync_window(model, dev_windows[0])
+    prof_wall, prof_busy, prof_top, _ = _device_profile(
+        lambda: [model(*w) for w in dev_windows])
+    transport, boxes, invs = dev_windows[0]
+    records = _ghost_kernels_at(decode_window_coords(transport), model.protein_idx, boxes, invs,
+                                dims, tier0[0], tier0[1], MILLION_ATOMS, "1M window")
+    del dev_windows, transport
+    torch.cuda.empty_cache()
+
+    parity, rmsd_err = _cpu_parity(path, (rmsd, count, check), ref, pmass, pidx, box, dims,
+                                   caps0)
+    native_runs = [json.loads(subprocess.run(
+        [str(native_exe), path, str(MILLION_PROTEIN), str(CUTOFF)],
+        check=True, capture_output=True, text=True, timeout=900,
+    ).stdout) for _ in range(MILLION_NATIVE_RUNS)]
+    native_fps = [r["fps"] for r in native_runs]
+    native_parity = max(abs(int(r["within0"]) - int(count[0])) for r in native_runs)
+    phase("million_path", atoms=MILLION_ATOMS, protein=MILLION_PROTEIN, box_nm=MILLION_BOX,
+          dims=dims, frames=MILLION_FRAMES, shipped_window=shipped, caps_frame0=caps0,
+          caps_tier0=tier0, caps_worst_frame=tuple(int(v) for v in worst),
+          worst_over_frame0=tuple(round(int(w) / max(1, int(c)), 3)
+                                  for w, c in zip(worst, caps0)),
+          tier0_holds=bool((worst <= np.asarray(tier0)).all()),
+          windows_retried=repr(retried_by_window),
+          fps_by_window=repr({w: [round(p, 3) for p in v] for w, v in sweep.items()}),
+          fps_median_by_window=repr({w: round(v, 3) for w, v in medians.items()}),
+          best_window=max(medians, key=medians.get),
+          decode_only_fps_by_window=repr({w: round(v, 3) for w, v in decode_fps.items()}),
+          e2e_fps_best=max(passes), e2e_fps_median=float(np.median(passes)),
+          window_enqueue_ms=enqueue_ms, profiled_wall_ms=prof_wall, device_busy_ms=prof_busy,
+          device_busy_share=prof_busy / prof_wall, top_device_ops=repr(prof_top),
+          device_ms_per_frame=prof_busy / resident_frames,
+          native_fps=native_fps, native_fps_best=max(native_fps),
+          native_fps_median=float(np.median(native_fps)), within0=int(count[0]),
+          native_within0=native_runs[0]["within0"], mean_rmsd=float(np.mean(rmsd)),
+          rmsd_max_abs_err_vs_cpu=rmsd_err, parity_diff=parity,
+          native_parity_diff=native_parity, launches=launches, write_s=round(t_write, 3),
+          kernels=repr({k: {kk: (round(vv, 5) if isinstance(vv, float) else vv)
+                            for kk, vv in r.items()} for k, r in records.items()}))
+    if parity or native_parity or rmsd_err > 1e-5:
+        raise AssertionError(f"1M parity failed: parity_diff={parity} "
+                             f"native_parity_diff={native_parity} rmsd_err={rmsd_err}")
+    return records, launches
+
+
+# ---------------------------------------------------------------- phase 17
+
+# A contact list above DENSE_LIMIT on phase 9's file: the 4,000 protein rows
+# against the first 1,000 water oxygens (4.0 M candidates), at the workload's
+# 0.4 nm; 32 frames of the stream held against the module on the CPU, and
+# the triclinic dense form on the dodecahedron's file (the protein against
+# the first 50 waters' atoms, 16 frames).
+GRID_CONTACT_WATERS = 1000
+GRID_CONTACT_CPU_FRAMES = 32
+TRICLINIC_LIGAND = 50
+
+
+def _op_count(fn) -> float:
+    """Device operations of one ``fn()``: the kernels and copies of two
+    profiled passes after a warm one, halved."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA and not e.name.startswith("stage:")
+               for e in prof.events()) / 2
+
+
+def _pair_sets(out, frames):
+    """Per frame, the set of (source, target) pairs of a contact window's
+    output (pairs, distances, count, overflow)."""
+    pairs = out[0][:frames].cpu().numpy()
+    return [set(map(tuple, p[p[:, 0] >= 0].tolist())) for p in pairs]
+
+
+def phase_grid_contacts(device, wl_system, wl_path, dodeca_path):
+    """Phase 17: the grid ``contact_pairs`` window above ``DENSE_LIMIT``,
+    through ``workloads.Contacts``: the whole window at once against its
+    frame loop (plain version) on the card, pairs equal in order; the
+    first frames against the module on the CPU as sets; device and
+    enqueue ms, device operations a window, no host sync, fps of the
+    stream. Then the triclinic dense form, timed, against the CPU."""
+    import torch
+
+    from molar_tpu_torch import workloads as wl
+    from molar_tpu_torch.convert import transport_to_torch
+    from molar_tpu_torch.core.pbc import PeriodicBox
+    from molar_tpu_torch.ops.neighbor import (contact_pairs_dense_window, estimate_caps,
+                                              grid_dims_for)
+    from molar_tpu_torch.tasks.trajectory import (TrajectoryReader, auto_window,
+                                                  decode_window_coords)
+
+    from torch_scenes import dodecahedron
+
+    s = wl_system
+    tgt_rows = s.ow[:GRID_CONTACT_WATERS]
+    subset = np.concatenate([s.protein, tgt_rows])
+    src = torch.arange(len(s.protein))
+    tgt = torch.arange(len(s.protein), len(subset))
+    box = PeriodicBox(s.box)
+    dims = grid_dims_for(box, wl.CUTOFF)
+    _, tcap, _ = estimate_caps(s.coords[tgt_rows], box.inv, dims, np.arange(len(tgt_rows)))
+    if len(src) * len(tgt) <= wl.DENSE_LIMIT:
+        raise AssertionError("the grid contact scene is not above DENSE_LIMIT")
+
+    def module(dev):
+        return wl.Contacts(src.to(dev), tgt.to(dev), dims, wl.CUTOFF, wl.MAX_PAIRS, tcap)
+
+    model, cpu_model = module(device), module("cpu")
+    if model.dense:
+        raise AssertionError("Contacts took the dense form above DENSE_LIMIT")
+    window = auto_window(wl_path, subset)
+    host = next(TrajectoryReader([wl_path]).iter_windows(window, quantized=_wire(),
+                                                          subset=subset))
+    dev_window = transport_to_torch(host, device)
+    coords = decode_window_coords(dev_window[0])
+    boxes, invs = dev_window[1], dev_window[2]
+    got = model.pairs(coords, boxes, invs)
+    loop = model.pairs(coords, boxes, invs, plain=True)
+    if not all(torch.equal(a, b) for a, b in zip(got, loop)):
+        raise AssertionError("grid contacts: the window form != its frame loop on the card")
+    if got[3].any() or not (got[2] > 0).all():
+        raise AssertionError(f"grid contacts: overflow {int(got[3].sum())} or an empty frame")
+    n = GRID_CONTACT_CPU_FRAMES
+    cpu = cpu_model.pairs(coords[:n].cpu(), boxes[:n].cpu(), invs[:n].cpu())
+    cpu_equal = _pair_sets(cpu, n) == _pair_sets(got, n)
+    if not cpu_equal or not torch.equal(cpu[2], got[2][:n].cpu()):
+        raise AssertionError("grid contacts: the card's pair sets != the CPU's")
+    _no_sync_window(model, dev_window)
+    ms = _graph_ms(lambda: model(*dev_window), 3)
+    _, enqueue_ms, by_stage, ops, top = _workload_window(model, dev_window,
+                                                        ("decode", "contacts"))
+    loop_ms = _cuda_ms(lambda: model.pairs(coords, boxes, invs, plain=True), 1)
+    loop_ops = _op_count(lambda: model.pairs(coords[:8], boxes[:8], invs[:8], plain=True))
+    t0 = time.perf_counter()
+    model.pairs(coords, boxes, invs, plain=True)
+    loop_enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    fps = [_stream(wl_path, window, model, device, subset)[0] for _ in range(3)]
+
+    # The triclinic dense form on the dodecahedron's file.
+    dbox = PeriodicBox(dodecahedron(DODECA_D))
+    dsrc = torch.arange(PROTEIN, device=device)
+    dtgt = torch.arange(PROTEIN, PROTEIN + TRICLINIC_LIGAND, device=device)
+    corr = torch.as_tensor(dbox.padded_corrections(), device=device)
+    dwin = transport_to_torch(next(TrajectoryReader([dodeca_path]).iter_windows(
+        DODECA_WINDOW, quantized=_wire())), device)
+    dcoords = decode_window_coords(dwin[0])
+
+    def dense(c, b, i, k, a, t):
+        return contact_pairs_dense_window(c, a, t, wl.CUTOFF, b, i, k, wl.MAX_PAIRS)
+
+    dgot = dense(dcoords, dwin[1], dwin[2], corr, dsrc, dtgt)
+    dcpu = dense(*(x.cpu() for x in (dcoords, dwin[1], dwin[2], corr, dsrc, dtgt)))
+    dense_equal = (_pair_sets(dgot, DODECA_WINDOW) == _pair_sets(dcpu, DODECA_WINDOW)
+                   and torch.equal(dgot[2].cpu(), dcpu[2]))
+    if not dense_equal or dgot[3].any() or not (dgot[2] > 0).all():
+        raise AssertionError("triclinic dense contacts: card != CPU, overflow or empty")
+    dense_ms = _graph_ms(lambda: dense(dcoords, dwin[1], dwin[2], corr, dsrc, dtgt), 5)
+    dense_ops = _op_count(lambda: dense(dcoords, dwin[1], dwin[2], corr, dsrc, dtgt))
+    phase("grid_contacts", rows=len(subset), sources=len(src), targets=len(tgt),
+          candidates=len(src) * len(tgt), dense_limit=wl.DENSE_LIMIT, dims=dims, cap=tcap,
+          max_pairs=wl.MAX_PAIRS, window=window, mean_pairs=float(got[2].float().mean()),
+          device_ms_per_window=ms, device_ms_per_frame=ms / window,
+          enqueue_ms_per_window=enqueue_ms, device_ops_per_window=ops,
+          stage_device_ms=repr({k: round(v, 4) for k, v in by_stage.items()}),
+          top_device_ops=repr(top),
+          frame_loop_ms_per_window=loop_ms, frame_loop_enqueue_ms=loop_enqueue_ms,
+          frame_loop_device_ops_per_frame=loop_ops / 8, stream_fps=[round(f, 3) for f in fps],
+          stream_fps_median=float(np.median(fps)), window_equals_frame_loop=True,
+          cpu_frames_equal=n, no_sync_window=True)
+    phase("triclinic_dense_contacts", sources=PROTEIN, targets=TRICLINIC_LIGAND,
+          frames=DODECA_WINDOW, d_nm=DODECA_D, device_ms_per_window=dense_ms,
+          device_ms_per_frame=dense_ms / DODECA_WINDOW, device_ops_per_window=dense_ops,
+          mean_pairs=float(dgot[2].float().mean()), cpu_equal=dense_equal)
+
+
+# ---------------------------------------------------------------- phase 18
+
+MESH_RAGGED = 63
+
+
+def phase_mesh(device, args, workdir, headline_path, ghost, model, window):
+    """Phase 18: frames sharded over devices on the one card: the ghost
+    headline window through ``MeshWindowRunner(frame_mesh())`` (one device
+    here) and a two-shard runner whose shards both sit on this card, each
+    equal to the unsharded window; a ragged 63-frame window; the whole
+    stream through ``headline.run(mesh=)`` equal to the main path; a
+    ``WindowAnalysisTask`` with ``--mesh 2`` equal to one without; the
+    runner's host overhead against the unsharded window. Scaling over
+    several cards is not shown on one. Returns the stream's launches."""
+    import torch
+
+    from molar_tpu_torch import convert, headline
+    from molar_tpu_torch.core.pbc import PeriodicBox
+    from molar_tpu_torch.ops.neighbor import grid_dims_for
+    from molar_tpu_torch.parallel import MeshWindowRunner, frame_mesh
+    from molar_tpu_torch.tasks.trajectory import TrajectoryReader
+
+    one, two = MeshWindowRunner(frame_mesh()), MeshWindowRunner([device, device])
+    host = [next(TrajectoryReader([headline_path]).iter_windows(w, quantized=_wire()))
+            for w in (WINDOW, MESH_RAGGED)]
+    worst_rmsd = 0.0
+    for item in host:
+        want = model(*convert.transport_to_torch(item, device))
+        for runner in (one, two):
+            got = runner.call(model, *item[:3])
+            if not all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])):
+                raise AssertionError(f"mesh of {runner.n}: counts or checksums differ "
+                                     f"({len(item[4])}-frame window)")
+            worst_rmsd = max(worst_rmsd, float((got[0] - want[0]).abs().max()))
+    if worst_rmsd > 1e-6:
+        raise AssertionError(f"mesh: RMSD off by {worst_rmsd}")
+
+    def host_ms(fn, n=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    dev_window = convert.transport_to_torch(host[0], device)
+    ms = {"unsharded": host_ms(lambda: model(*dev_window)),
+          "one_device": host_ms(lambda: one.call(model, *host[0][:3])),
+          "two_shards": host_ms(lambda: two.call(model, *host[0][:3])),
+          "unsharded_with_copy": host_ms(
+              lambda: model(*convert.transport_to_torch(host[0], device)))}
+
+    box = PeriodicBox(np.diag([BOX] * 3))
+    coords0, masses = headline.make_system(ATOMS, PROTEIN, box.matrix)
+    pidx = np.arange(PROTEIN)
+    dims = grid_dims_for(box, CUTOFF)
+    caps0 = headline.base_caps(headline_path, box.inv, dims, pidx)
+    _reset_launches()
+    (ids, rmsd, count, check, retried), passes = _timed_passes(args.repeats, lambda: headline.run(
+        headline_path, coords0[pidx], masses[pidx], pidx, box, CUTOFF, dims, caps0, WINDOW,
+        device, mesh=two))
+    launches = _launches()
+    gids, grmsd, gcount, gcheck = ghost
+    n_windows = args.repeats * -(-len(ids) // WINDOW)
+    if not (np.array_equal(ids, gids) and np.array_equal(count, gcount)
+            and np.array_equal(check, gcheck)) or float(np.abs(rmsd - grmsd).max()) > 1e-6:
+        raise AssertionError("mesh stream: results differ from the main path's")
+    if launches["within_rows"] or min(launches["cell_bins"],
+                                      launches["within_ghost"]) < 2 * n_windows:
+        raise AssertionError(f"mesh stream: launches {launches}, expected two a window each")
+
+    Task = _selection_task()
+    gro = os.path.join(workdir, "conf.gro")
+    plain, sharded = Task(), Task()
+    plain.run(["-f", gro, headline_path], device=device)
+    t0 = time.perf_counter()
+    sharded.run(["-f", gro, headline_path, "--mesh", "2"], device=device)
+    t_task = time.perf_counter() - t0
+    if not (np.array_equal(sharded.results, plain.results)
+            and np.array_equal(sharded.frame_ids, plain.frame_ids)):
+        raise AssertionError("WindowAnalysisTask --mesh 2: results differ from one device")
+    phase("mesh", devices_on_this_machine=torch.cuda.device_count(),
+          frame_mesh=[str(d) for d in one.devices], two_shards=[str(d) for d in two.devices],
+          windows_checked=f"{WINDOW},{MESH_RAGGED}", rmsd_max_abs_diff=worst_rmsd,
+          host_ms_per_window=repr({k: round(v, 3) for k, v in ms.items()}),
+          overhead_two_shards=ms["two_shards"] / ms["unsharded_with_copy"],
+          stream_fps=[round(p, 3) for p in passes], stream_fps_median=float(np.median(passes)),
+          windows_retried=retried, launches=launches, task_mesh2_s=round(t_task, 3),
+          task_frames=len(sharded.frame_ids), results_equal=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=256)
@@ -2745,6 +3189,8 @@ def main() -> int:
         launches, model, window, ghost, native_within0 = timed(
             "main_path", phase_main_path, device, args, native_exe, workdir)
         timed("stages_ghost", phase_stages, model, window)
+        million, launches_million = timed("million", phase_million, device, args, native_exe,
+                                          workdir)
         stats["within_rows"] = timed("rows_vs_plain", phase_rows_vs_plain, device)
         launches["within_rows"], rows_model, rows_window = timed(
             "rows_path", phase_rows_path, device, args, headline_path, ghost, native_within0,
@@ -2752,11 +3198,14 @@ def main() -> int:
         timed("stages_rows", phase_stages, rows_model, rows_window)
         dodeca = timed("dodecahedron", phase_dodecahedron, device, workdir)
         wl_system, wl_path, wl_meta = timed("workloads", phase_workloads, device, workdir)
+        timed("grid_contacts", phase_grid_contacts, device, wl_system, wl_path, dodeca[0])
         timed("host_stream", phase_host_stream, device, args, headline_path, wl_system, wl_path)
         timed("sasa", phase_sasa, device, workdir, wl_system, wl_meta)
         timed("membrane", phase_membrane, device, workdir)
         launches_selection = timed("selection", phase_selection, device, args, workdir,
                                    headline_path, ghost, dodeca)
+        launches_mesh = timed("mesh", phase_mesh, device, args, workdir, headline_path, ghost,
+                              model, window)
         timed("espaloma", phase_espaloma, device)
         timed("trjconv_cli", phase_trjconv_cli, workdir, wl_system, wl_path, wl_meta)
     finally:
@@ -2774,8 +3223,10 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": replaces,
         "launches": launches[k], "launches_per_frame": launches[k] / frames,
-        "launches_selection_path": launches_selection[k], **stats[k],
-        "ms_per_frame": stats[k]["ms"] / stats[k]["frames_per_launch"],
+        "launches_selection_path": launches_selection[k],
+        "launches_million_path": launches_million[k], "launches_mesh_path": launches_mesh[k],
+        **stats[k], "ms_per_frame": stats[k]["ms"] / stats[k]["frames_per_launch"],
+        **{f"million_{kk}": v for kk, v in million.get(k, {}).items()},
     } for k, (src, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -20,8 +20,11 @@ the per-residue SASA workload, in plain torch. And the membrane pipeline
 (``membrane``), the selection language (``selection``) with
 ``tasks.trajectory.WindowAnalysisTask``, espaloma partial charges
 (``ff.espaloma``: the model file's GNN as a torch module), trjconv
-(``io.trjconv`` over the XTC prefix decode and ``io.dcd``) and the
-``molar-torch`` command line (``cli``: ``info``, ``trjconv``).
+(``io.trjconv`` over the XTC prefix decode and ``io.dcd``), the
+``molar-torch`` command line (``cli``: ``info``, ``trjconv``), and frames
+sharded over several devices (``parallel.mesh``: one process, a list of
+devices, behind ``WindowPipeline``, the overflow retry, ``--mesh`` and the
+workloads).
 """
 
 from . import config

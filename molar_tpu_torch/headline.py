@@ -212,7 +212,7 @@ class FitWithinWindow(nn.Module):
 
 
 def run(xtc_path, ref, masses, protein_idx, box, cutoff, dims, caps0, window, device,
-        search: str = "ghost"):
+        search: str = "ghost", mesh=None):
     """Stream ``xtc_path`` in windows of the shipped wire form
     (:data:`~molar_tpu_torch.tasks.trajectory.WIRE`) through
     :class:`FitWithinWindow`, retrying overflowed windows over four capacity
@@ -220,7 +220,10 @@ def run(xtc_path, ref, masses, protein_idx, box, cutoff, dims, caps0, window, de
     :class:`~molar_tpu_torch.core.pbc.PeriodicBox` that picks the route
     with ``search`` (:func:`convert.from_numpy`); ``dims`` =
     :func:`~molar_tpu_torch.ops.neighbor.grid_dims_for`; ``caps0`` =
-    :func:`base_caps`. Returns (frame ids, rmsd, count, checksum) numpy
+    :func:`base_caps`. ``mesh`` (a list of devices or a
+    :class:`~molar_tpu_torch.parallel.mesh.MeshWindowRunner`) shards each
+    window's frames over its devices (``bench.py --mesh``); ``device`` is
+    then its first. Returns (frame ids, rmsd, count, checksum) numpy
     arrays in stream order, and the retried window count."""
 
     def build(tier):
@@ -231,7 +234,7 @@ def run(xtc_path, ref, masses, protein_idx, box, cutoff, dims, caps0, window, de
 
     results, retried = run_with_overflow_retry(
         TrajectoryReader([xtc_path]), window, build, device,
-        overflow_of=lambda r: r[3], n_tiers=4, quantized=trajectory.WIRE,
+        overflow_of=lambda r: r[3], n_tiers=4, quantized=trajectory.WIRE, mesh=mesh,
     )
     ids = np.concatenate([np.asarray(i) for i, _ in results])
     rmsd, count, check = (

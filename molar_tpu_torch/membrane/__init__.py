@@ -3,8 +3,8 @@
 on (:mod:`.spec`) and the group statistics it folds into (:mod:`.stats`)."""
 
 from .device import MembraneDevice, MembraneWindow
-from .spec import MembraneSpec, SpeciesTemplate
+from .spec import MembraneSpec, SpeciesTemplate, leaflets
 from .stats import LipidGroup, MembraneError, MembraneOptions
 
 __all__ = ["LipidGroup", "MembraneDevice", "MembraneError", "MembraneOptions", "MembraneSpec",
-           "MembraneWindow", "SpeciesTemplate"]
+           "MembraneWindow", "SpeciesTemplate", "leaflets"]

@@ -817,6 +817,31 @@ class MembraneDevice:
             for gr in self.groups.values():
                 self._group_update(gr, fr, outs, valid, tilt)
 
+    def merge_stats_from(self, other: "MembraneDevice") -> None:
+        """Fold ``other``'s accumulated group statistics into this one's
+        (``Membrane.merge_stats_from``). The frame-sharded shape of the
+        membrane workload: each shard streams its slice of the trajectory
+        through its own :class:`MembraneDevice`, and the per-group Welford
+        accumulators merge afterwards, exactly up to float rounding and in
+        any order. Groups and species must match."""
+        if set(self.groups) != set(other.groups):
+            raise MembraneError("cannot merge: group names differ")
+        for name, gr in self.groups.items():
+            ogr = other.groups[name]
+            if gr.species_names != ogr.species_names:
+                raise MembraneError(f"cannot merge group {name!r}: species differ")
+            for sp in gr.species_names:
+                st, ost = gr.per_species[sp], ogr.per_species[sp]
+                for key in ("count", "area", "tilt", "mean_curv", "gauss_curv", "n_neighbors"):
+                    st[key].merge(ost[key])
+                for s, acc in ost["neib_fractions"].items():
+                    st["neib_fractions"][s].merge(acc)
+                if ost["order"] is not None:
+                    if st["order"] is None:
+                        st["order"] = [_RunningStats(o.mean.shape) for o in ost["order"]]
+                    for mine, theirs in zip(st["order"], ost["order"]):
+                        mine.merge(theirs)
+
     def _group_update(self, gr: LipidGroup, fr, outs, valid, tilt):
         in_group = np.zeros(self.n_lipids + 1, bool)
         in_group[list(gr.lipid_ids)] = True

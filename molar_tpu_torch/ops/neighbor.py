@@ -676,6 +676,76 @@ def contact_pairs(
             torch.where(ok, torch.sqrt(d2), 0.0), count, overflow | (count > max_pairs))
 
 
+def _cell_table_window(fx, fy, fz, dims, cap: int):
+    """:func:`cell_table` of every frame of a window at once: (B, n)
+    fractional planes -> ((B, n_cells, cap) int32 member tables (row
+    positions within the frame, -1 at padding), overflow (B,)). One stable
+    sort over frame-offset cell ids keeps each frame's members in index
+    order, so each frame's table is the one :func:`cell_table` builds."""
+    b, n = fx.shape
+    n_cells = dims[0] * dims[1] * dims[2]
+    cx, cy, cz = _cell3(fx, fy, fz, dims)
+    frame = torch.arange(b, device=fx.device)[:, None]
+    flat = (((cx * dims[1] + cy) * dims[2] + cz).long() + frame * n_cells).reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    sorted_flat = flat[order]
+    rank = _rank_in_run(sorted_flat)
+    over = torch.zeros(b, dtype=torch.int32, device=fx.device).index_add_(
+        0, sorted_flat // n_cells, (rank >= cap).to(torch.int32))
+    table = torch.full((b * n_cells * cap,), -1, dtype=torch.int32, device=fx.device)
+    table[sorted_flat * cap + rank.clamp(max=cap - 1)] = (order % n).to(torch.int32)
+    return table.view(b, n_cells, cap), over > 0
+
+
+def _rows(x, idx):
+    """``x[f][idx[f]]`` for every frame f: (B, n) planes gathered at (B,
+    ...) indices."""
+    return torch.gather(x, 1, idx.reshape(idx.shape[0], -1)).view(idx.shape)
+
+
+def _search_core_window(coords, src_idx, tgt_idx, c2, boxes, invs, corrections, dims, cap,
+                        pbc):
+    """:func:`_search_core` over a window, every frame at once -> (hit (B,
+    n_src, 27, cap), members (B, n_src, 27, cap), overflow (B,), wrapped
+    source planes (B, n_src), wrapped target planes (B, n_tgt)). The same
+    operations on each element as the one-frame form, so the same bits."""
+    b = coords.shape[0]
+    sf = _wrap_frac(coords[:, src_idx], invs)
+    tf = _wrap_frac(coords[:, tgt_idx], invs)
+    sx, sy, sz = _apply3(boxes, *sf)
+    tx, ty, tz = _apply3(boxes, *tf)
+    table, overflow = _cell_table_window(*tf, dims, cap)
+    cx, cy, cz = (c[:, :, None] for c in _cell3(*sf, dims))
+    o = torch.arange(27, device=coords.device)[None, None, :]
+    off = (o // 9 - 1, (o // 3) % 3 - 1, o % 3 - 1)
+    frame = torch.arange(b, device=coords.device)
+
+    if corrections is None and min(dims) >= 3:
+        cells, (shx, shy, shz), ok = _cells_shift(cx, cy, cz, off, dims, pbc, boxes)
+        members = table[frame[:, None, None], cells]
+        cand = members.clamp(min=0).long()
+        dx = _rows(tx, cand) + shx[..., None] - sx[:, :, None, None]
+        dy = _rows(ty, cand) + shy[..., None] - sy[:, :, None, None]
+        dz = _rows(tz, cand) + shz[..., None] - sz[:, :, None, None]
+        hit = ok[..., None] & (members >= 0) & (dx * dx + dy * dy + dz * dz <= c2)
+        return hit, members, overflow, (sx, sy, sz), (tx, ty, tz)
+
+    nb, ok = _neighbor_cells(cx, cy, cz, off, dims, pbc)
+    nb = torch.where(ok, nb, -1)
+    if min(dims) <= 2:
+        nb = _dedupe_small_grid(nb.reshape(-1, 27)).view(nb.shape)
+    hits, mems = [], []
+    for k in range(27):
+        cells = nb[:, :, k]
+        members = table[frame[:, None], cells.clamp(min=0)]
+        cand = members.clamp(min=0).long()
+        d2 = _min_image_d2(_rows(tx, cand) - sx[:, :, None], _rows(ty, cand) - sy[:, :, None],
+                           _rows(tz, cand) - sz[:, :, None], boxes, invs, corrections, pbc)
+        hits.append((cells >= 0)[:, :, None] & (members >= 0) & (d2 <= c2))
+        mems.append(members)
+    return torch.stack(hits, 2), torch.stack(mems, 2), overflow, (sx, sy, sz), (tx, ty, tz)
+
+
 def contact_pairs_window(
     coords,
     src_idx,
@@ -688,12 +758,42 @@ def contact_pairs_window(
     cap: int = 32,
     max_pairs: int = 1 << 16,
     pbc=(True, True, True),
+    plain: bool = False,
 ):
-    """:func:`contact_pairs` over a window, frame by frame: ``coords`` (B,
-    N, 3), ``boxes``/``invs`` (B, 3, 3), ``corrections`` None, (K, 3) or
-    (B, K, 3) -> (pairs (B, max_pairs, 2), distances (B, max_pairs), count
-    (B,), overflow (B,))."""
-    frames = [contact_pairs(coords[f], src_idx, tgt_idx, cutoff, boxes[f], invs[f],
-                            _frames_of(corrections, f), dims, cap, max_pairs, pbc)
-              for f in range(coords.shape[0])]
-    return tuple(torch.stack(x) for x in zip(*frames))
+    """:func:`contact_pairs` over a window: ``coords`` (B, N, 3),
+    ``boxes``/``invs`` (B, 3, 3), ``corrections`` None, (K, 3) or (B, K,
+    3) -> (pairs (B, max_pairs, 2), distances (B, max_pairs), count (B,),
+    overflow (B,)). Every frame of a run at once (runs of frames whose hit
+    table stays under :data:`_BLOCK_ELEMS`), a fixed number of launches a
+    run; ``plain=True`` runs :func:`contact_pairs` frame by frame, the
+    plain version it equals: the same pairs in the same order, the same
+    distances, counts and flags."""
+    if plain:
+        frames = [contact_pairs(coords[f], src_idx, tgt_idx, cutoff, boxes[f], invs[f],
+                                _frames_of(corrections, f), dims, cap, max_pairs, pbc)
+                  for f in range(coords.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*frames))
+    c2 = _cutoff2(cutoff)
+    k = corrections.shape[-2] if corrections is not None and all(pbc) else 1
+    per_frame = src_idx.shape[0] * 27 * cap * k
+    step = max(1, _BLOCK_ELEMS // max(1, per_frame))
+    runs = []
+    for lo in range(0, coords.shape[0], step):
+        run = slice(lo, lo + step)
+        corr = _frames_of(corrections, run)
+        hit, mem, overflow, (sx, sy, sz), (tx, ty, tz) = _search_core_window(
+            coords[run], src_idx, tgt_idx, c2, boxes[run], invs[run], corr, dims, cap, pbc)
+        b = hit.shape[0]
+        pos = _compact(hit.reshape(b, -1), max_pairs)
+        ok = pos >= 0
+        safe = pos.clamp(min=0)
+        si = safe // (27 * cap)
+        mj = torch.gather(mem.reshape(b, -1), 1, safe).clamp(min=0).long()
+        d2 = _min_image_d2(_rows(tx, mj) - _rows(sx, si), _rows(ty, mj) - _rows(sy, si),
+                           _rows(tz, mj) - _rows(sz, si), boxes[run], invs[run], corr, pbc)
+        pairs = torch.stack([src_idx[si], tgt_idx[mj]], dim=-1)
+        count = hit.reshape(b, -1).sum(dim=1)
+        runs.append((torch.where(ok[..., None], pairs, -1).to(torch.int32),
+                     torch.where(ok, torch.sqrt(d2), 0.0), count,
+                     overflow | (count > max_pairs)))
+    return runs[0] if len(runs) == 1 else tuple(torch.cat(x) for x in zip(*runs))

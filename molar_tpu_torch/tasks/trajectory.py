@@ -16,6 +16,9 @@ flags (:func:`build_arg_parser`; ``-b/-e`` take :class:`FrameSpec`'s
 suffixes), a structure file read into a
 :class:`~molar_tpu_torch.core.system.System`, and a window function of the
 task's own over device tensors, streamed through :class:`WindowPipeline`.
+The pipeline, the overflow retry and the task take a ``mesh``: each window's
+frames sharded over several devices by a
+:class:`~molar_tpu_torch.parallel.mesh.MeshWindowRunner`.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from ..convert import transport_to_torch
 from ..io.xtc import XtcHandler
+from ..parallel.mesh import as_runner, frame_mesh
 
 # Windows decoded ahead of compute.
 _QUEUE_DEPTH = 2
@@ -56,6 +60,16 @@ WIRE_BYTES = {"delta": 3, True: 6, False: 12}
 #: selection stream the cap.
 AUTO_WINDOW_TARGET_BYTES = 40 << 20
 AUTO_WINDOW_MAX = 512
+#: The fewest frames :func:`auto_window` picks (fewer only in a shorter
+#: file): the decode pool (``io.xtc.DECODE_WORKERS`` = 8 threads) decodes a
+#: window one frame a worker, so a shorter window leaves workers idle. From
+#: the 1,000,000-atom headline (32 frames, i16 wire, 6 MB a frame) on an
+#: NVIDIA H100 80GB HBM3 (700 W; ``chip_smoke.py`` phase 16), medians of 3
+#: passes at windows of 1 / 2 / 4 / 8: 38.8 / 70.2 / 102.6 / 172.4 frames/s
+#: in one call, 31.9 / 50.0 / 97.6 / 134.9 (and 131.8 at 16) in another;
+#: the decode alone ran 44 / 71 / 112 / 226 frames/s. The 40 MiB target
+#: gave that stream 4 frames.
+AUTO_WINDOW_MIN = 8
 
 
 log = logging.getLogger("molar_tpu_torch.analysis")
@@ -97,7 +111,11 @@ class TrajectoryReader:
     """Concatenated multi-file frame stream with begin/end/skip. ``begin`` and
     ``end`` (inclusive) are global frame indices or :class:`FrameSpec`s (a
     frame index or a time in ps, against each frame's time); the skip phase
-    carries across file boundaries."""
+    carries across file boundaries. The stream ends at its first frame past
+    ``end``, in frame order across the files, as ``analysis_task.rs``'s
+    runner does: frames after it are never read, even where a later file's
+    times restart below the end time. ``begin`` is a filter, frame by
+    frame."""
 
     def __init__(
         self,
@@ -134,18 +152,22 @@ class TrajectoryReader:
         fr_base = 0
         n_eligible = 0
         for path in self.paths:
+            if self.end.frame is not None and fr_base > self.end.frame:
+                return
             with XtcHandler(path) as h:
                 n = h.n_frames
                 ids = np.arange(fr_base, fr_base + n)
-                keep = np.ones(n, dtype=bool)
+                past = np.zeros(n, dtype=bool)
+                if self.end.frame is not None:
+                    past |= ids > self.end.frame
+                if self.end.time is not None:
+                    past |= h.times > self.end.time
+                n_read = int(np.argmax(past)) if past.any() else n
+                keep = np.arange(n) < n_read
                 if self.begin.frame is not None:
                     keep &= ids >= self.begin.frame
                 if self.begin.time is not None:
                     keep &= h.times >= self.begin.time
-                if self.end.frame is not None:
-                    keep &= ids <= self.end.frame
-                if self.end.time is not None:
-                    keep &= h.times <= self.end.time
                 kept = np.nonzero(keep)[0]
                 phase = (-n_eligible) % self.skip
                 n_eligible += len(kept)
@@ -173,7 +195,9 @@ class TrajectoryReader:
                             boxes[k] = fr.box.matrix if fr.box is not None else np.eye(3)
                             times[k] = fr.time
                     yield coords, boxes, _invert_boxes(boxes), times, ids[chunk]
-                fr_base += n
+            if n_read < n:
+                return
+            fr_base += n
 
     def _read_chunk(self, h, start, count, quantized, sub, n_prefix, alloc):
         """One contiguous chunk in its wire form. What is shipped lies in
@@ -264,9 +288,10 @@ def auto_window(
     pays a fixed host cost a window (enqueueing the window function), so
     its windows should be long. At 16 frames and above the window is
     rounded down to a multiple of 16 and clamped to ``max_window``; below
-    16 (huge frames) it falls in powers of two down to 1. Never longer than
-    the file. A path that is not an XTC raises, as :class:`TrajectoryReader`
-    does."""
+    16 (huge frames) it falls in powers of two, but not below
+    :data:`AUTO_WINDOW_MIN` (the JAX package goes down to 1: on the H100 a
+    shorter window starves the decode pool). Never longer than the file. A
+    path that is not an XTC raises, as :class:`TrajectoryReader` does."""
     if requested:
         return requested
     if not str(path).lower().endswith(".xtc"):
@@ -279,7 +304,7 @@ def auto_window(
         p2 = 1
         while p2 * 2 <= max(1, w):
             p2 *= 2
-        return int(min(n_frames, p2))
+        return int(min(n_frames, max(p2, AUTO_WINDOW_MIN)))
     return int(min(n_frames, max_window, w // 16 * 16))
 
 
@@ -367,18 +392,22 @@ class WindowPipeline:
     """
 
     def __init__(self, reader, window: int, window_fn: Callable, device, quantized=False,
-                 subset=None):
+                 subset=None, mesh=None):
         self.reader = reader
         self.window = window
         self.window_fn = window_fn
-        self.device = torch.device(device)
+        #: The frame-sharded runner (``mesh``: a list of devices or a
+        #: :class:`~molar_tpu_torch.parallel.mesh.MeshWindowRunner`), or None.
+        self.runner = as_runner(mesh)
+        self.device = self.runner.device if self.runner is not None else torch.device(device)
         self.quantized = quantized
         self.subset = subset
         self.timings: dict = {}
 
     def run(self):
         """Yield ``(frame_ids, results)`` per window, in stream order."""
-        cuda = self.device.type == "cuda"
+        runner = self.runner
+        cuda = self.device.type == "cuda" and runner is None
         copy_stream = torch.cuda.Stream(self.device) if cuda else None
         ring = StagingRing(_QUEUE_DEPTH + 1, pin=True) if cuda else None
         q: queue.Queue = queue.Queue(maxsize=_QUEUE_DEPTH)
@@ -417,7 +446,10 @@ class WindowPipeline:
                         break
                     ready = None
                     t0 = clock()
-                    if cuda:
+                    if runner is not None:
+                        # Padded, split and copied (blocking) shard by shard.
+                        dev = runner.prepare(*item[:3])
+                    elif cuda:
                         with torch.cuda.stream(copy_stream):
                             dev = transport_to_torch(item, self.device, non_blocking=True,
                                                      alloc=ring)
@@ -454,7 +486,11 @@ class WindowPipeline:
                         # Allocated on the copy stream, used on compute:
                         # keep the allocator from recycling it early.
                         x.record_stream(compute)
-                res = self.window_fn(*dev)
+                if runner is not None:
+                    shards, b, form = dev
+                    res = runner.trim(runner.wrap(self.window_fn, form)(shards), b)
+                else:
+                    res = self.window_fn(*dev)
                 t["enqueue"] += clock() - t0
                 t["windows"] += 1
                 yield ids, res
@@ -482,6 +518,7 @@ def run_with_overflow_retry(
     n_tiers: int = 3,
     quantized=False,
     subset=None,
+    mesh=None,
 ):
     """Stream windows through ``build_fn(0)``; re-run overflowed windows at
     higher capacity tiers (the fixed-capacity + retry contract).
@@ -495,11 +532,15 @@ def run_with_overflow_retry(
     per-frame re-read fallback serves its non-XTC readers, not ported).
     Raises :class:`AnalysisError` if the last tier still overflows. Returns
     ``(results, retried_window_count)`` with ``results`` a list of
-    ``(frame_ids, result)`` in stream order.
+    ``(frame_ids, result)`` in stream order. ``mesh`` (a list of devices or
+    a :class:`~molar_tpu_torch.parallel.mesh.MeshWindowRunner`) shards
+    every window's frames over its devices, the retried ones through the
+    same runner; ``device`` is then the mesh's first.
     """
+    runner = as_runner(mesh)
     fns = {0: build_fn(0)}
     results = list(WindowPipeline(reader, window, fns[0], device, quantized=quantized,
-                                  subset=subset).run())
+                                  subset=subset, mesh=runner).run())
     if not results:
         return results, 0
     flags = torch.stack([overflow_of(res).any() for _, res in results]).cpu().numpy()
@@ -516,7 +557,10 @@ def run_with_overflow_retry(
             redo_in = list(sub.iter_windows(window, quantized=quantized, subset=subset))
             if len(redo_in) != 1 or not np.array_equal(redo_in[0][4], ids):
                 raise AnalysisError(f"re-read of window {w} did not reproduce frames {ids}")
-            res = fns[tier](*transport_to_torch(redo_in[0], device))
+            if runner is not None:
+                res = runner.call(fns[tier], *redo_in[0][:3])
+            else:
+                res = fns[tier](*transport_to_torch(redo_in[0], device))
             if not bool(overflow_of(res).any()):
                 results[w] = (ids, res)
                 break
@@ -529,9 +573,9 @@ def run_with_overflow_retry(
 
 
 def build_arg_parser(description: str = "trajectory analysis") -> argparse.ArgumentParser:
-    """The reference TrajAnalysisArgs flag set (-f/-b/-e/--skip/--log) and
-    ``--window``. ``--mesh`` (frames sharded over several devices) is parsed
-    so that it can be refused: it is not ported."""
+    """The reference TrajAnalysisArgs flag set (-f/-b/-e/--skip/--log),
+    ``--window`` and ``--mesh`` (each window's frames sharded over that many
+    devices)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("-f", "--files", nargs="+", required=True,
                    help="structure file followed by trajectory file(s)")
@@ -542,7 +586,7 @@ def build_arg_parser(description: str = "trajectory analysis") -> argparse.Argum
     p.add_argument("--window", type=int, default=0,
                    help="frames per device window (0 = auto_window from the stream's rows)")
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard each window's frames over this many devices (not ported)")
+                   help="shard each window's frames over this many devices (0: one device)")
     return p
 
 
@@ -570,6 +614,16 @@ class WindowAnalysisTask:
     device unless the caller passes another); the frames' times are not
     shipped. A window whose searches overflow is the window function's to
     flag and ``accumulate``'s to refuse.
+
+    ``--mesh N`` (or ``mesh``, a list of devices or a
+    :class:`~molar_tpu_torch.parallel.mesh.MeshWindowRunner`) shards each
+    window's frames over N devices: the first N CUDA devices
+    (:func:`~molar_tpu_torch.parallel.mesh.frame_mesh`), or N shards on
+    ``device`` when the caller names one (the CPU tests; several shards of
+    one card). ``build`` then runs for the mesh's first device; a window
+    function that is an ``nn.Module`` is replicated to the others, any
+    other callable runs as it is. Every output must be per-frame;
+    ``accumulate`` sees whole, trimmed windows either way.
     """
 
     task_name = "window analysis"
@@ -587,7 +641,7 @@ class WindowAnalysisTask:
     def post_process(self) -> None:
         pass
 
-    def run(self, argv: Optional[Sequence[str]] = None, device=None) -> int:
+    def run(self, argv: Optional[Sequence[str]] = None, device=None, mesh=None) -> int:
         """Parse ``argv``, build and stream -> the number of frames read."""
         from ..config import require_cuda
         from ..core.system import System
@@ -596,11 +650,15 @@ class WindowAnalysisTask:
         parser = build_arg_parser(self.task_name)
         self.add_args(parser)
         args = parser.parse_args(argv)
-        if args.mesh:
-            raise NotImplementedError("--mesh: sharding a window's frames over several devices "
-                                      "is not ported; run on one device")
+        if args.mesh < 0:
+            raise ValueError(f"--mesh takes a device count, got {args.mesh}")
         self.args = args
         self.device = torch.device(device) if device is not None else require_cuda()
+        if mesh is None and args.mesh:
+            mesh = [self.device] * args.mesh if device is not None else frame_mesh(args.mesh)
+        runner = as_runner(mesh)
+        if runner is not None:
+            self.device = runner.device
         structure, *trajectories = args.files
         paths = trajectories or [structure]
         system = System.from_file(structure)
@@ -611,11 +669,8 @@ class WindowAnalysisTask:
         if not args.window:
             log.info("auto window: %d frames", self.window)
 
-        def fn(transport, boxes, invs):
-            return window_fn(decode_window_coords(transport), boxes, invs)
-
-        pipeline = WindowPipeline(reader, self.window, fn, self.device, quantized=WIRE,
-                                  subset=self.subset)
+        pipeline = WindowPipeline(reader, self.window, _Decoded(window_fn), self.device,
+                                  quantized=WIRE, subset=self.subset, mesh=runner)
         n = 0
         t0 = time.perf_counter()
         for ids, results in pipeline.run():
@@ -630,3 +685,15 @@ class WindowAnalysisTask:
         self.timings = {"setup": t0 - t_start, "stream": time.perf_counter() - t0,
                         **pipeline.timings}
         return n
+
+
+class _Decoded(torch.nn.Module):
+    """A task's window function behind the wire form's decode, as a module
+    (a mesh replicates it, and with it a window function that is one)."""
+
+    def __init__(self, window_fn: Callable):
+        super().__init__()
+        self.window_fn = window_fn
+
+    def forward(self, transport, boxes, invs):
+        return self.window_fn(decode_window_coords(transport), boxes, invs)

@@ -202,14 +202,16 @@ class Contacts(nn.Module):
         self.dense = src.shape[0] * tgt.shape[0] <= DENSE_LIMIT
 
     @torch.no_grad()
-    def pairs(self, coords, boxes, invs):
+    def pairs(self, coords, boxes, invs, plain: bool = False):
         """Decoded ``coords`` (B, n, 3) -> (pairs (B, max_pairs, 2) row
-        numbers, distances, count, overflow)."""
+        numbers, distances, count, overflow). ``plain`` runs the grid form
+        frame by frame (its plain version)."""
         if self.dense:
             return contact_pairs_dense_window(coords, self.src, self.tgt, self.cutoff, boxes, invs,
                                               max_pairs=self.max_pairs)
         return contact_pairs_window(coords, self.src, self.tgt, self.cutoff, boxes, invs,
-                                    dims=self.dims, cap=self.cap, max_pairs=self.max_pairs)
+                                    dims=self.dims, cap=self.cap, max_pairs=self.max_pairs,
+                                    plain=plain)
 
     @torch.no_grad()
     def forward(self, transport, boxes, invs):
@@ -367,17 +369,27 @@ def _checks(name: str, outs, spec=None) -> dict:
             "check_contacts": float(count.mean())}
 
 
-def run(name: str, system: System, xtc: str, window: int, device):
+def run(name: str, system: System, xtc: str, window: int, device, mesh=None):
     """Stream ``xtc`` through workload ``name`` on ``device`` in windows of
     ``window`` frames (0: :func:`auto_window` sizes it from the subset;
     :data:`SASA_WINDOW` for ``sasa``, whose pace the device sets) that
     carry only the workload's rows; one synchronize, at the end. A
     ``sasa`` window whose lists overflow is run again at the next of
     :data:`SASA_TIERS` capacity tiers, and the last tier's overflow
-    raises. Returns (frames, seconds of the stream, check scalars)."""
+    raises. ``mesh`` (a list of devices, ``benchmarks/workloads.py
+    --mesh``) shards each window's frames over its devices, and runs the
+    membrane as one :class:`MembraneDevice` a device over contiguous
+    slices of frames, merged (:func:`run_membrane_shards`); ``device`` is
+    then ignored. Returns (frames, seconds of the stream, check
+    scalars)."""
+    if mesh is not None:
+        device = torch.device(list(mesh)[0])
     if name == "membrane":
-        return run_membrane(MembraneDevice(system.spec, system.coords, system.box,
-                                           device=device), xtc, window)
+        devs = [MembraneDevice(system.spec, system.coords, system.box, device=d)
+                for d in (mesh or [device])]
+        if mesh is not None:
+            return run_membrane_shards(devs, xtc, window)
+        return run_membrane(devs[0], xtc, window)
     model, subset = convert.workload_from_numpy(name, system, device)
     reader = TrajectoryReader([xtc])
     frames, outs = 0, []
@@ -385,15 +397,17 @@ def run(name: str, system: System, xtc: str, window: int, device):
     if name == "sasa":
         results, _ = run_with_overflow_retry(
             reader, window or SASA_WINDOW, model.at_tier, device, overflow_of=lambda r: r[1],
-            n_tiers=SASA_TIERS, quantized=trajectory.WIRE, subset=subset)
+            n_tiers=SASA_TIERS, quantized=trajectory.WIRE, subset=subset, mesh=mesh)
     else:
         results = WindowPipeline(reader, auto_window(xtc, subset, requested=window), model,
-                                 device, quantized=trajectory.WIRE, subset=subset).run()
+                                 device, quantized=trajectory.WIRE, subset=subset,
+                                 mesh=mesh).run()
     for ids, res in results:
         outs.append(res)
         frames += len(ids)
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+    for d in mesh or [device]:
+        if torch.device(d).type == "cuda":
+            torch.cuda.synchronize(d)
     seconds = time.perf_counter() - t0
     return frames, seconds, _checks(name, outs)
 
@@ -517,26 +531,52 @@ class _BoxChecked:
             yield window
 
 
-def run_membrane(dev: MembraneDevice, xtc: str, window: int = 0):
-    """The membrane workload through ``dev``: ``xtc``'s windows of
-    ``window`` frames (:data:`MEMBRANE_WINDOW` when 0) of the spec's rows;
-    each window's outputs come back to the host and are folded into
-    ``dev``'s group statistics before the next is read. -> (frames,
-    seconds, check scalars)."""
-    window = window or MEMBRANE_WINDOW
-    t0 = time.perf_counter()
+def _stream_membrane(dev: MembraneDevice, reader, window: int):
+    """``reader``'s windows of ``dev``'s rows through ``dev``, each folded
+    into its group statistics before the next is read -> (frames, the
+    windows' outputs as numpy)."""
     dev.resolve_engine(window)
-    pipe = WindowPipeline(_BoxChecked(TrajectoryReader([xtc]), dev.check_boxes), window,
-                          dev.window_fn, dev.device, quantized=trajectory.WIRE,
-                          subset=dev.subset)
+    pipe = WindowPipeline(_BoxChecked(reader, dev.check_boxes), window, dev.window_fn,
+                          dev.device, quantized=trajectory.WIRE, subset=dev.subset)
     frames, outs = 0, []
     for ids, res in pipe.run():
         res = to_numpy(res)
         dev.accumulate(res)
         outs.append(res)
         frames += len(ids)
-    seconds = time.perf_counter() - t0
-    return frames, seconds, _checks("membrane", outs, dev.spec)
+    return frames, outs
+
+
+def run_membrane(dev: MembraneDevice, xtc: str, window: int = 0):
+    """The membrane workload through ``dev``: ``xtc``'s windows of
+    ``window`` frames (:data:`MEMBRANE_WINDOW` when 0) of the spec's rows;
+    each window's outputs come back to the host and are folded into
+    ``dev``'s group statistics before the next is read. -> (frames,
+    seconds, check scalars)."""
+    t0 = time.perf_counter()
+    frames, outs = _stream_membrane(dev, TrajectoryReader([xtc]), window or MEMBRANE_WINDOW)
+    return frames, time.perf_counter() - t0, _checks("membrane", outs, dev.spec)
+
+
+def run_membrane_shards(devs, xtc: str, window: int = 0):
+    """The membrane workload's frame-sharded shape (``wl_membrane(shards=)``):
+    ``xtc``'s frames in ``len(devs)`` contiguous slices, slice k streamed
+    through ``devs[k]`` (a :class:`MembraneDevice` each, on its own device
+    or all on one), then every device's group statistics folded into
+    ``devs[0]``'s (:meth:`MembraneDevice.merge_stats_from`). -> (frames,
+    seconds, check scalars of every slice's outputs)."""
+    with XtcHandler(xtc) as h:
+        per = -(-h.n_frames // len(devs))
+    t0 = time.perf_counter()
+    frames, outs = 0, []
+    for k, dev in enumerate(devs):
+        reader = TrajectoryReader([xtc], begin=k * per, end=(k + 1) * per - 1)
+        n, o = _stream_membrane(dev, reader, window or MEMBRANE_WINDOW)
+        frames += n
+        outs += o
+    for dev in devs[1:]:
+        devs[0].merge_stats_from(dev)
+    return frames, time.perf_counter() - t0, _checks("membrane", outs, devs[0].spec)
 
 
 def write_membrane_native(spec: MembraneSpec, box, frames, path: str) -> None:

@@ -9,8 +9,9 @@ pipeline (``membrane/*``) with ``tasks/engine`` on a small bilayer, and the
 selection language (``selection/*``, the host modules it reads, ``io/gro``,
 ``core/system``) through a ``WindowAnalysisTask`` on a GRO and an XTC, and
 espaloma charges (``ff/*``, ``ops/perception``), trjconv (``io/dcd``,
-``io/trjconv``) through the function and the ``molar-torch`` CLI, and a
-``FrameBatch``; a static scan finds no JAX or ``molar_tpu`` import in the port or in
+``io/trjconv``) through the function and the ``molar-torch`` CLI, a
+``FrameBatch``, a membrane spec from a TOML with its leaflets, and the
+headline stream sharded over two CPU devices (``parallel/mesh``); a static scan finds no JAX or ``molar_tpu`` import in the port or in
 ``chip_smoke.py``.
 """
 
@@ -140,6 +141,37 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
     for name in ("membrane", "membrane.device", "membrane.spec", "membrane.stats",
                  "tasks.engine"):
         assert "molar_tpu_torch." + name in sys.modules, name
+    # The membrane from a TOML on a System: the bilayer's spec again.
+    from molar_tpu_torch.convert import topology_from_numpy
+    from molar_tpu_torch.core.state import State
+    from molar_tpu_torch.core.system import System
+    from molar_tpu_torch.membrane import MembraneSpec, leaflets
+    nl = b.spec.n_lipids
+    ltop = topology_from_numpy(["P", "G", "C1", "C2", "C3", "C4"] * nl, ["LIP"] * 6 * nl,
+                               np.repeat(np.arange(1, nl + 1), 6), np.repeat(np.arange(nl), 6),
+                               ["A"] * 6 * nl, np.full(6 * nl, 12.0), np.zeros(6 * nl),
+                               np.ones(6 * nl), np.zeros(6 * nl), np.full(6 * nl, 6))
+    lsys = System(ltop, State(coords=b.coords, box=PeriodicBox(b.box)))
+    toml = "\\n".join(["cutoff = 2.0", "[lipids.LIP]", 'whole = "resname LIP"',
+                      'head = "name P"', 'mid = "name G"', 'tails = ["C1-C2-C3-C4"]'])
+    tspec = MembraneSpec.from_toml(lsys, toml)
+    assert all(np.array_equal(getattr(tspec, f), getattr(b.spec, f))
+               for f in ("subset", "first", "atom_first", "masses", "species_of"))
+    assert tspec.groups == b.spec.groups
+    up, down = leaflets(tspec, b.coords, PeriodicBox(b.box))
+    assert up == list(range(nl // 2)) and down == list(range(nl // 2, nl))
+    # Frames sharded over two CPU "devices": the headline stream again.
+    from molar_tpu_torch.parallel import MeshWindowRunner, com_gyration_sharded, frame_mesh
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "t.xtc")
+        headline.write_trajectory(path, coords0, box.matrix, 6)
+        mesh_out = headline.run(path, coords0[pidx], masses[pidx], pidx, box, cutoff, dims,
+                                caps0, 4, "cpu", mesh=frame_mesh(2, devices=["cpu"] * 4))
+    assert mesh_out[0].tolist() == ids.tolist() and (mesh_out[2] == count).all()
+    assert (mesh_out[3] == check).all()
+    com, gyr = com_gyration_sharded([["cpu", "cpu"]] * 2)(coords0[None], masses)
+    assert com.shape == (1, 3) and float(gyr[0]) > 0
+    assert "molar_tpu_torch.parallel.mesh" in sys.modules
     # The selection language: a GRO and an XTC through a WindowAnalysisTask
     # whose window function runs three tiers of FrameSelection.
     from molar_tpu_torch.convert import topology_from_numpy

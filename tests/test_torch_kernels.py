@@ -18,7 +18,11 @@ one ``within_ghost`` launch a ghost-route node, and at division ties (a
 0-d device divisor is a true division), the RMSD
 fit against a float64 Kabsch with TF32 pinned off and deliberately on, and
 the espaloma GNN forward on the card against the torch-CPU forward, its
-charges against the numpy walk with TF32 pinned off and deliberately on.
+charges against the numpy walk with TF32 pinned off and deliberately on,
+a window and a stream through a ``MeshWindowRunner`` of one, two and three
+shards on this card against the unsharded ones (the ghost kernels once a
+shard), and the grid contact list of a window at once against its frame
+loop and the CPU, orthorhombic and triclinic, with host syncs made errors.
 They skip without a card. On the card, without the repository's conftest
 (which imports JAX):
 
@@ -678,3 +682,85 @@ def test_espaloma_tf32_on_card(cuda_device):
     print(f"max abs charge error vs the numpy walk: pinned {pinned:.3e}, TF32 {tf32:.3e}")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert pinned <= 1e-4 < tf32
+
+
+def _mesh_headline(tmp_path, n=4000, npro=400, side=3.42, frames=7):
+    from molar_tpu_torch import headline
+
+    box = PeriodicBox(np.diag([side] * 3))
+    coords0, masses = headline.make_system(n, npro, box.matrix)
+    path = str(tmp_path / "t.xtc")
+    headline.write_trajectory(path, coords0, box.matrix, frames)
+    pidx = np.arange(npro)
+    dims = neighbor.grid_dims_for(box, 0.5)
+    caps0 = headline.base_caps(path, box.inv, dims, pidx)
+    return path, coords0[pidx], masses[pidx], pidx, box, dims, caps0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 2, 3])
+def test_mesh_runner_on_card_matches_the_unsharded_window(cuda_device, tmp_path, n_shards):
+    """A window of 7 frames through a runner whose shards all sit on this
+    card (ragged for 2 and 3 shards): counts and checksums equal the
+    unsharded window's, RMSD within 1e-6, and each shard launches both
+    ghost kernels once."""
+    from molar_tpu_torch import convert, headline
+    from molar_tpu_torch.parallel import MeshWindowRunner
+    from molar_tpu_torch.tasks.trajectory import TrajectoryReader
+
+    path, ref, masses, pidx, box, dims, caps0 = _mesh_headline(tmp_path)
+    model = convert.from_numpy(ref, masses, pidx, box.matrix, 0.5, headline.caps_for(*caps0, 1),
+                               dims, cuda_device)
+    (item,) = TrajectoryReader([path]).iter_windows(7, quantized=True)
+    want = model(*convert.transport_to_torch(item, cuda_device))
+    runner = MeshWindowRunner([cuda_device] * n_shards)
+    before = neighbor_ghost.cell_bins.launches, neighbor_ghost.within_ghost.launches
+    got = runner.call(model, *item[:3])
+    torch.cuda.synchronize()
+    assert neighbor_ghost.cell_bins.launches == before[0] + n_shards
+    assert neighbor_ghost.within_ghost.launches == before[1] + n_shards
+    assert not want[3].any() and all(g.device == cuda_device for g in got)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert float((got[0] - want[0]).abs().max()) <= 1e-6
+    # and the stream, with the retry, through the runner
+    ids, rmsd, count, check, _ = headline.run(path, ref, masses, pidx, box, 0.5, dims, caps0, 4,
+                                              cuda_device)
+    mids, mrmsd, mcount, mcheck, _ = headline.run(path, ref, masses, pidx, box, 0.5, dims, caps0,
+                                                  4, cuda_device, mesh=runner)
+    assert np.array_equal(ids, mids) and np.array_equal(count, mcount)
+    assert np.array_equal(check, mcheck) and np.abs(rmsd - mrmsd).max() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("triclinic", [False, True])
+def test_grid_contact_window_on_card_matches_the_frame_loop(cuda_device, triclinic):
+    """The grid contact list of a window at once against its frame loop on
+    the card (the same pairs in the same order, distances, counts and
+    flags) and against the CPU as pair sets, with host syncs made errors."""
+    rng = np.random.default_rng(0)
+    m = (np.array([[4.0, 0, 2.0], [0, 4.0, 2.0], [0, 0, 2.828]], np.float32) if triclinic
+         else np.diag([4.0, 4.4, 4.8]).astype(np.float32))
+    box = PeriodicBox(m)
+    b, n = 6, 3000
+    coords = torch.as_tensor((rng.uniform(-0.1, 1.1, (b, n, 3)) @ m.T.astype(np.float64))
+                             .astype(np.float32))
+    boxes = torch.as_tensor(np.repeat(m[None], b, 0))
+    invs = torch.as_tensor(np.repeat(box.inv[None], b, 0))
+    corr = torch.as_tensor(box.padded_corrections()) if triclinic else None
+    src, tgt = torch.arange(0, 2100), torch.arange(2100, 3000)
+    dims = neighbor.grid_dims_for(box, 0.4)
+    args = (coords, src, tgt, 0.4, boxes, invs, corr, dims, 16, 1 << 14)
+    dev_args = tuple(a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = neighbor.contact_pairs_window(*dev_args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    loop = neighbor.contact_pairs_window(*dev_args, plain=True)
+    cpu = neighbor.contact_pairs_window(*args)
+    assert all(torch.equal(a, c) for a, c in zip(got, loop))
+    assert not got[3].any() and torch.equal(got[2].cpu(), cpu[2])
+    for f in range(b):
+        gp, cp = got[0][f].cpu().numpy(), cpu[0][f].numpy()
+        assert set(map(tuple, gp[gp[:, 0] >= 0].tolist())) == set(map(tuple,
+                                                                       cp[cp[:, 0] >= 0].tolist()))

@@ -238,10 +238,29 @@ def test_frame_spec_parses_as_the_reference():
         assert (got.frame, got.time) == (want.frame, want.time), text
 
 
+class FirstRowTask(IdsTask):
+    def build(self, system):
+        self.ids, self.rows = [], []
+        return lambda coords, boxes, invs: coords[:, 0]
+
+    def accumulate(self, frame_ids, results):
+        super().accumulate(frame_ids, results)
+        self.rows.append(results)
+
+
 def test_mesh_and_other_structure_formats_are_refused(files, tmp_path):
+    # --mesh is ported: two and three shards on the CPU give the one-device
+    # run's frames and rows; a negative device count is refused.
     gro, xtc = files
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        IdsTask().run(["-f", gro, xtc, "--mesh", "2"], device="cpu")
+    one = FirstRowTask()
+    one.run(["-f", gro, xtc, "--window", "3"], device="cpu")
+    for shards in ("2", "3"):
+        task = FirstRowTask()
+        task.run(["-f", gro, xtc, "--window", "3", "--mesh", shards], device="cpu")
+        assert task.ids == one.ids == list(range(N_FRAMES))
+        assert torch.equal(torch.cat(task.rows), torch.cat(one.rows))
+    with pytest.raises(ValueError, match="--mesh"):
+        IdsTask().run(["-f", gro, xtc, "--mesh", "-1"], device="cpu")
     pdb = tmp_path / "x.pdb"
     pdb.write_text("END\n")
     with pytest.raises(NotImplementedError, match=r"\.pdb"):

@@ -255,25 +255,26 @@ def test_overflow_retry_rereads_the_same_rows(case):
     assert not results[1][1][1].any()
 
 
-@pytest.mark.parametrize("rows,target,max_window,want", [
-    (100, 6_000_000, 128, 24),        # longer than the file: the file's frames
-    (100, 3 * 100 * 20, 128, 16),     # 20 -> a multiple of 16
-    (100, 3 * 100 * 15, 128, 8),      # below 16: a power of two
-    (100, 3 * 100 * 3, 128, 2),
-    (100, 10, 128, 1),
-    (None, 3 * 2000 * 17, 128, 16),   # every atom
-    (400, 6_000_000, 16, 16),         # clamped to max_window
+@pytest.mark.parametrize("rows,target,max_window,want,want_jax", [
+    (100, 6_000_000, 128, 24, 24),    # longer than the file: the file's frames
+    (100, 3 * 100 * 20, 128, 16, 16),  # 20 -> a multiple of 16
+    (100, 3 * 100 * 15, 128, 8, 8),   # below 16: a power of two
+    (100, 3 * 100 * 3, 128, 8, 2),    # ... but not below AUTO_WINDOW_MIN
+    (100, 10, 128, 8, 1),
+    (None, 3 * 2000 * 17, 128, 16, 16),  # every atom
+    (400, 6_000_000, 16, 16, 16),     # clamped to max_window
 ])
-def test_auto_window_rounding_rules(case, rows, target, max_window, want):
+def test_auto_window_rounding_rules(case, rows, target, max_window, want, want_jax):
     _, _, xtc = case
     subset = None if rows is None else np.arange(rows)
     # ``target`` counts the JAX package's 3 bytes a row a frame; the port
     # counts the bytes of the wire form it ships. Frame for frame the rules
-    # are the same.
+    # are the same, but for the port's floor of AUTO_WINDOW_MIN frames (the
+    # JAX package falls to 1; the H100 sweep of phase 16 set the floor).
     mine = target * traj.WIRE_BYTES[traj.WIRE] // 3
     got = traj.auto_window(xtc, subset, target_bytes=mine, max_window=max_window)
-    assert got == want
-    assert got == jtraj.auto_window(xtc, subset, target_bytes=target, max_window=max_window)
+    assert got == want == max(want_jax, min(traj.AUTO_WINDOW_MIN, N_FRAMES))
+    assert jtraj.auto_window(xtc, subset, target_bytes=target, max_window=max_window) == want_jax
     assert traj.auto_window(xtc, subset, requested=7, target_bytes=mine) == 7
 
 
