@@ -18,8 +18,11 @@ workload runs on the same system, the membrane pipeline runs on
 ``benchmarks/workloads.py``'s two bilayers (72 and 4,608 lipids), a
 ``WindowAnalysisTask`` counts VMD-like selections a frame on the headline's
 trajectory, written with a structure file, espaloma charges a ligand
-library and a peptide, and trjconv writes the protein rows of the
-workloads' file to DCD, through the function and the ``molar-torch`` CLI.
+library and a peptide, trjconv writes the protein rows of the
+workloads' file to DCD, through the function and the ``molar-torch`` CLI,
+and the README's first lines (``System`` / ``Sel`` from a PDB, their
+measures, selections, SASA, DSSP and a per-frame ``AnalysisTask``) run on
+the headline system against the card.
 Weights do not exist here but espaloma's, whose model file is in the
 repository; the systems, molecules and trajectories are made from seeds.
 Phases, one line each on stdout (the workloads a line each):
@@ -183,7 +186,24 @@ Phases, one line each on stdout (the workloads a line each):
    ``MeshWindowRunner`` of ``frame_mesh()`` and of two shards on this
    card, equal to the unsharded window; the stream through
    ``headline.run(mesh=)`` equal to the main path; a ``WindowAnalysisTask``
-   with ``--mesh 2`` equal to one without; the runner's host ms a window.
+   with ``--mesh 2`` equal to one without; the runner's host ms a window;
+19. user API (run last): the README's first lines on the headline system.
+   Its first frame written as ``conf.pdb`` and ``conf.gro`` and read back
+   by ``System.from_file`` (every column and the coordinates as each
+   format stores them; read and write seconds); ``sys("protein")``'s
+   ``com`` / ``cog`` / ``gyration`` / ``inertia`` with and without
+   ``PBC_FULL`` against ``ops.measure`` on the card (1e-5 relative);
+   ``sys("within 0.5 pbc of protein")`` (host evaluator) and
+   ``Sel.within_of`` equal to the ``FrameSelection`` device tier's mask on
+   the card (one ``cell_bins`` and one ``within_ghost`` launch); the
+   per-frame RMSD of the protein through ``AnalysisTask`` (host
+   ``Sel.fit`` + ``rmsd_mw``) over ``conf.pdb`` and the headline XTC
+   against a ``WindowPipeline`` fitting on the card (1e-5 nm; both fps);
+   ``Sel.sasa`` of the protein's first 1,000 atoms against
+   ``ops.sasa_lr.sasa`` on the card (1e-4 relative; both times);
+   ``dssp("gmx")`` and ``dss()`` of an ideal 100-residue alpha-helix built
+   by NeRF (``tests/torch_structures.py``): ``H`` on every interior
+   residue.
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: the ghost path must launch only the two ghost kernels,
@@ -191,14 +211,14 @@ the rows path the binning kernel and the row kernel once a window each and
 never the ghost stencil, the dodecahedron, workloads, sasa, membrane,
 espaloma and trjconv paths none, the selection path the two ghost
 kernels once a ghost-route within node a window, the 1M path the two
-ghost kernels at least once a window, and the mesh path once a shard a
-window.
+ghost kernels at least once a window, the mesh path once a shard a
+window, and the user-API path each ghost kernel once.
 
 Any failure raises, and then the script exits non-zero without its last
 line. The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the per-kernel JSON record (launches on the main path and on the
-selection, 1M and mesh paths, time, the plain twin's time and the bound,
-each per launch, and the same on the 1M window). The script needs a CUDA
+selection, 1M, mesh and user-API paths, time, the plain twin's time and
+the bound, each per launch, and the same on the 1M window). The script needs a CUDA
 device and imports no JAX.
 
 The system is ``bench.py``'s headline at its defaults and is not an option
@@ -2738,6 +2758,209 @@ def phase_trjconv_cli(workdir, system, path, meta):
                              f"cli bytes equal {cli_equal}, launches {launches}")
 
 
+# ---------------------------------------------------------------- phase 19
+
+# The user-API path: the README's first lines on the headline system. The
+# SASA slice (the protein's first rows), the helix's length, and the bars:
+# measures on the card within 1e-5 relative, AnalysisTask's RMSD within
+# 1e-5 nm of the card window's, Sel.sasa within 1e-4 relative of ops.sasa_lr.
+USER_SASA_ATOMS = 1000
+USER_HELIX_RESIDUES = 100
+USER_MEASURE_RTOL = 1e-5
+USER_RMSD_ATOL = 1e-5
+USER_SASA_RTOL = 1e-4
+USER_SASA_CAP = 256
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _columns_as_written(ext, written, back):
+    """Mismatches of ``back`` (read from ``ext``) against ``written``, each
+    column as the format stores it: PDB resids modulo 9,999 and
+    coordinates to 3 decimals in Angstrom; GRO resids modulo 99,999, no
+    chain, coordinates to 3 decimals in nm."""
+    wt, bt = written.topology, back.topology
+    resid_mod, coord_tol = (9999, 0.5e-4 + 1e-6) if ext == "pdb" else (99999, 0.5e-3 + 1e-6)
+    bad = {
+        "names": int((wt.names() != bt.names()).sum()),
+        "resnames": int((wt.resnames() != bt.resnames()).sum()),
+        "resid": int((wt.resid % resid_mod != bt.resid).sum()),
+        "atomic_number": int((wt.atomic_number != bt.atomic_number).sum()),
+        "mass": int((wt.mass != bt.mass).sum()),
+        "chain": int((wt.chain != bt.chain).sum()) if ext == "pdb" else 0,
+        "coords": int((np.abs(written.state.coords - back.state.coords) > coord_tol).sum()),
+    }
+    box_tol = 0.5e-4 if ext == "pdb" else 0.5e-4 + 1e-6
+    bad["box"] = int(np.abs(written.state.box.matrix - back.state.box.matrix).max() > box_tol)
+    return bad
+
+
+def phase_user_api(device, workdir, headline_path):
+    """Phase 19: ``System`` / ``Sel`` and the structure files on the
+    headline system, their answers held against the card's."""
+    import torch
+
+    import molar_tpu_torch as mt
+    from molar_tpu_torch import headline
+    from molar_tpu_torch.io import FileHandler
+    from molar_tpu_torch.ops import measure, sasa_lr
+    from molar_tpu_torch.selection import FrameSelection
+    from molar_tpu_torch.tasks.trajectory import (AnalysisTask, TrajectoryReader,
+                                                  WindowPipeline, auto_window,
+                                                  decode_window_coords)
+
+    from torch_structures import HELIX, scene_pdb
+
+    # IO: the headline's first frame as PDB and GRO, written and read back.
+    with FileHandler(headline_path) as fh:
+        written = mt.System(headline.label_topology(ATOMS, PROTEIN), fh.read_state())
+    io_s, bad_columns, systems = {}, {}, {}
+    for ext in ("pdb", "gro"):
+        path = os.path.join(workdir, f"conf.{ext}")
+        t0 = time.perf_counter()
+        written.save(path)
+        t1 = time.perf_counter()
+        systems[ext] = mt.System.from_file(path)
+        io_s[f"{ext}_write_s"] = round(t1 - t0, 3)
+        io_s[f"{ext}_read_s"] = round(time.perf_counter() - t1, 3)
+        bad_columns[ext] = _columns_as_written(ext, written, systems[ext])
+    system = systems["pdb"]
+    pdb = os.path.join(workdir, "conf.pdb")
+
+    # Measures of sys("protein") on the host against ops.measure on the card.
+    prot = system("protein")
+    c = torch.from_numpy(prot.coords).to(device)[None]
+    m = torch.from_numpy(prot.masses).to(device)
+    box = system.state.box
+    boxes = torch.from_numpy(box.matrix).to(device)[None]
+    invs = torch.from_numpy(box.inv).to(device)[None]
+    t0 = time.perf_counter()
+    host = {"com": prot.com(), "cog": prot.cog(), "gyration": prot.gyration(),
+            "inertia": prot.inertia()[0], "com_pbc": prot.com(mt.PBC_FULL),
+            "cog_pbc": prot.cog(mt.PBC_FULL), "gyration_pbc": prot.gyration(mt.PBC_FULL),
+            "inertia_pbc": prot.inertia(mt.PBC_FULL)[0]}
+    host_measure_s = time.perf_counter() - t0
+    card = {"com": measure.center(c, m), "cog": measure.center(c),
+            "gyration": measure.gyration(c, m), "inertia": measure.inertia(c, m)[0],
+            "com_pbc": measure.center_pbc(c, m, boxes, invs),
+            "cog_pbc": measure.center_pbc(c, None, boxes, invs),
+            "gyration_pbc": measure.gyration(c, m, boxes, invs),
+            "inertia_pbc": measure.inertia(c, m, boxes, invs)[0]}
+    measure_rel = {k: _rel(card[k][0].cpu().numpy(), host[k]) for k in host}
+
+    # The within selection: host evaluator, within_of, and the device tier
+    # on the card (one cell_bins and one within_ghost launch).
+    text = "within 0.5 pbc of protein"
+    t0 = time.perf_counter()
+    by_text = system(text).indices
+    t1 = time.perf_counter()
+    by_within_of = system().within_of(CUTOFF, prot, mt.PBC_FULL).indices
+    t2 = time.perf_counter()
+    fs = FrameSelection(text, system.topology, system.state, device=device)
+    coords = torch.from_numpy(system.state.coords).to(device)[None]
+    torch.cuda.synchronize()
+    _reset_launches()
+    t3 = time.perf_counter()
+    masks, overflow = fs.compiled(coords, boxes, invs)
+    by_card = np.flatnonzero(masks[0].cpu().numpy())
+    within_s = {"within_host_evaluator_s": round(t1 - t0, 3), "within_of_s": round(t2 - t1, 3),
+                "within_card_ms": round((time.perf_counter() - t3) * 1e3, 3)}
+
+    # The examples' shape: per-frame RMSD of sys("protein") through the
+    # host AnalysisTask (Sel.fit + rmsd_mw a frame) and through a
+    # WindowPipeline whose window function fits on the card.
+    ref = mt.System.from_file(pdb)
+
+    class Rmsd(AnalysisTask):
+        def pre_process(self):
+            self.sel, self.ref, self.rmsd = self.src("protein"), ref("protein"), []
+
+        def process_frame(self):
+            self.sel.fit(self.ref)
+            self.rmsd.append(self.sel.rmsd_mw(self.ref))
+
+    task = Rmsd()
+    t0 = time.perf_counter()
+    n_host = task.run(["-f", pdb, headline_path, "--log", "0"]).consumed_frames
+    host_fps = n_host / (time.perf_counter() - t0)
+    sel = ref("protein")
+    ref_t = torch.from_numpy(sel.coords).to(device)
+    masses_t = torch.from_numpy(sel.masses).to(device)
+    window = auto_window(headline_path, sel.indices)
+
+    def fit_window(transport, boxes_w, invs_w):
+        return measure.fit_rmsd(decode_window_coords(transport), ref_t, masses_t)[0]
+
+    t0 = time.perf_counter()
+    out = list(WindowPipeline(TrajectoryReader([headline_path]), window, fit_window, device,
+                              quantized=_wire(), subset=sel.indices).run())
+    card_rmsd = torch.cat([r for _, r in out]).cpu().numpy()
+    card_fps = len(card_rmsd) / (time.perf_counter() - t0)
+    ids = np.concatenate([i for i, _ in out])
+    rmsd_err = (float(np.abs(card_rmsd - np.asarray(task.rmsd)).max())
+                if len(card_rmsd) == n_host else float("inf"))
+
+    # SASA of a protein slice: host Lee-Richards against ops.sasa_lr on the card.
+    sl = system(f"protein and index < {USER_SASA_ATOMS}")
+    t0 = time.perf_counter()
+    host_areas = sl.sasa().areas()
+    host_sasa_s = time.perf_counter() - t0
+    radii = (system.topology.vdw()[sl.indices] + np.float32(0.14)).astype(np.float32)
+    nbr, nbr_overflow = sasa_lr.neighbor_lists(sl.coords, radii, cap=USER_SASA_CAP)
+    args_t = [torch.from_numpy(a).to(device) for a in (sl.coords, radii, nbr)]
+    sasa_lr.sasa(*args_t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_areas = sasa_lr.sasa(*args_t).cpu().numpy()
+    card_sasa_ms = (time.perf_counter() - t0) * 1e3
+    sasa_rel = float(np.max(np.abs(card_areas - host_areas) / np.maximum(np.abs(host_areas),
+                                                                         1e-3)))
+
+    # DSSP / dss of an ideal alpha-helix built by NeRF.
+    helix_pdb = os.path.join(workdir, "helix.pdb")
+    with open(helix_pdb, "w") as fh:
+        fh.write(scene_pdb(chains=(np.array([HELIX] * USER_HELIX_RESIDUES),), n_water=0,
+                           n_ligand=0, box=None))
+    helix = mt.System.from_file(helix_pdb)("protein")
+    t0 = time.perf_counter()
+    ss_gmx, ss_dss = helix.dssp("gmx"), helix.dss()
+    dssp_s = time.perf_counter() - t0
+    interior = "H" * (USER_HELIX_RESIDUES - 2)
+    launches = _launches()
+
+    phase("user_api", atoms=ATOMS, protein=PROTEIN, **io_s, bad_columns=bad_columns,
+          measure_rel_err=measure_rel, host_measure_s=round(host_measure_s, 4),
+          within_atoms=len(by_text), **within_s, within_tier=fs.tier, within_card_overflow=bool(overflow.any()),
+          launches=launches, frames=n_host, analysis_task_fps=round(host_fps, 3),
+          card_window=window, card_window_fps=round(card_fps, 3), rmsd_max_abs_err=rmsd_err,
+          sasa_atoms=len(sl), host_sasa_s=round(host_sasa_s, 3),
+          card_sasa_ms=round(card_sasa_ms, 3), sasa_rel_err=sasa_rel,
+          sasa_total_nm2=round(float(host_areas.sum()), 4), sasa_nbr_overflow=bool(nbr_overflow),
+          helix_dssp_gmx=ss_gmx, helix_dss=ss_dss, dssp_s=round(dssp_s, 4))
+    failures = [f"{ext} columns {b}" for ext, b in bad_columns.items() if any(b.values())]
+    failures += [f"measure {k} rel err {v}" for k, v in measure_rel.items()
+                 if not v <= USER_MEASURE_RTOL]
+    if not (np.array_equal(by_text, by_within_of) and np.array_equal(by_text, by_card)):
+        failures.append(f"within: host {len(by_text)}, within_of {len(by_within_of)}, "
+                        f"card {len(by_card)} atoms differ")
+    if fs.tier != "device" or overflow.any():
+        failures.append(f"within took tier {fs.tier}, overflow {bool(overflow.any())}")
+    if launches != {"cell_bins": 1, "within_ghost": 1, "within_rows": 0}:
+        failures.append(f"launches {launches}: expected one cell_bins and one within_ghost")
+    if not np.array_equal(ids, np.arange(n_host)) or not rmsd_err <= USER_RMSD_ATOL:
+        failures.append(f"rmsd: {n_host} host frames, card ids {ids[:3]}.., err {rmsd_err}")
+    if nbr_overflow or not sasa_rel <= USER_SASA_RTOL:
+        failures.append(f"sasa rel err {sasa_rel}, list overflow {nbr_overflow}")
+    if ss_gmx[1:-1] != interior or ss_dss[1:-1] != interior:
+        failures.append(f"helix dssp {ss_gmx!r} dss {ss_dss!r}")
+    if failures:
+        raise AssertionError("user-API path: " + "; ".join(failures))
+    return launches
+
+
 # ---------------------------------------------------------------- phase 16
 
 # bench.py's big point: 1,000,000 atoms at 100 atoms/nm^3 (a 21.544 nm
@@ -3208,6 +3431,7 @@ def main() -> int:
                               model, window)
         timed("espaloma", phase_espaloma, device)
         timed("trjconv_cli", phase_trjconv_cli, workdir, wl_system, wl_path, wl_meta)
+        launches_user_api = timed("user_api", phase_user_api, device, workdir, headline_path)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     phase("phase_seconds", **seconds)
@@ -3225,6 +3449,7 @@ def main() -> int:
         "launches": launches[k], "launches_per_frame": launches[k] / frames,
         "launches_selection_path": launches_selection[k],
         "launches_million_path": launches_million[k], "launches_mesh_path": launches_mesh[k],
+        "launches_user_api_path": launches_user_api[k],
         **stats[k], "ms_per_frame": stats[k]["ms"] / stats[k]["frames_per_launch"],
         **{f"million_{kk}": v for kk, v in million.get(k, {}).items()},
     } for k, (src, replaces) in KERNELS.items()]}), flush=True)

@@ -24,12 +24,51 @@ the per-residue SASA workload, in plain torch. And the membrane pipeline
 ``molar-torch`` command line (``cli``: ``info``, ``trjconv``), and frames
 sharded over several devices (``parallel.mesh``: one process, a list of
 devices, behind ``WindowPipeline``, the overflow retry, ``--mesh`` and the
-workloads).
+workloads). And the user API of the host half: ``System`` / ``Sel`` /
+``Particle`` (``core.system``), the structure and trajectory files behind
+``io.FileHandler`` (PDB, GRO, XYZ, XTC, DCD; NDX groups), every ``Sel``
+measure, DSSP / dss, host SASA and the per-frame ``tasks.trajectory.AnalysisTask``.
+The top-level names are the JAX package's; importing them does no CUDA work.
+
+Units: nm (length), ps (time), amu (mass), e (charge).
 """
 
 from . import config
 from .config import FLOAT, INDEX, require_cuda
+from .core.atom import Atom, BondOrder
+from .core.pbc import PBC_FULL, PBC_NONE, PbcDims, PeriodicBox, PeriodicBoxError
+from .core.state import FrameBatch, State
+from .core.system import Particle, Sel, SelectionError, System, distance_search
+from .core.topology import Topology
+from .selection import SelectionExpr, SelectionSyntaxError
 
 __version__ = "0.5.0"
 
-__all__ = ["config", "FLOAT", "INDEX", "require_cuda"]
+__all__ = [
+    "config", "FLOAT", "INDEX", "require_cuda", "Atom", "BondOrder", "FrameBatch", "PBC_FULL",
+    "PBC_NONE", "PbcDims", "PeriodicBox", "PeriodicBoxError", "State", "Topology", "Particle",
+    "Sel", "SelectionError", "System", "distance_search", "SelectionExpr",
+    "SelectionSyntaxError", "fit_transform", "fit_transform_matching", "rmsd_py", "rmsd_mw",
+]
+
+
+# pymolar's module-level entry points over two selections (molar.pyi:203-208);
+# natively they are Sel methods.
+
+
+def fit_transform(sel1: Sel, sel2: Sel):
+    """(rotation, translation) fitting ``sel1`` onto ``sel2``."""
+    return sel1.fit_transform(sel2)
+
+
+def fit_transform_matching(sel1: Sel, sel2: Sel):
+    return sel1.fit_transform_matching(sel2)
+
+
+def rmsd_py(sel1: Sel, sel2: Sel) -> float:
+    """Unweighted RMSD (pymolar naming; natively ``sel1.rmsd(sel2)``)."""
+    return sel1.rmsd(sel2)
+
+
+def rmsd_mw(sel1: Sel, sel2: Sel) -> float:
+    return sel1.rmsd_mw(sel2)

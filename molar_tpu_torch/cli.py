@@ -8,12 +8,11 @@ Two subcommands, counterparts of ``molar_tpu.cli``'s:
   exits 1: the CPU is never reported as the device.
 * ``trjconv`` — stream an XTC and write a selection to DCD
   (:func:`molar_tpu_torch.io.trjconv.trjconv`), the structure file read by
-  ``System.from_file`` (GRO) and the selection evaluated by
+  ``System.from_file`` (PDB, GRO or XYZ) and the selection evaluated by
   ``System.select_indices``. Host work, as in the JAX package.
 
 The JAX CLI's host-only subcommands (``last``, ``rearrange``, ``solvate``,
-``tip3to4``, ``membrane`` on the host ``Membrane``) belong to the host half,
-which the port does not copy.
+``tip3to4``, ``membrane`` on the host ``Membrane``) are not yet ported.
 """
 
 from __future__ import annotations
@@ -72,7 +71,7 @@ def main(argv=None) -> int:
     p = sub.add_parser("trjconv",
                        help="convert a trajectory selection (XTC -> DCD, prefix-decode fast path)")
     p.add_argument("-s", "--structure", required=True,
-                   help="structure file defining the topology (GRO)")
+                   help="structure file defining the topology (PDB, GRO, XYZ)")
     p.add_argument("-f", "--input", required=True, help="input XTC")
     p.add_argument("-o", "--output", required=True, help="output DCD")
     p.add_argument("--select", default=None, help="selection expression (default: all atoms)")

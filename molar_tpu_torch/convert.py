@@ -46,12 +46,15 @@ def transport_to_torch(window, device, non_blocking: bool = False, alloc=None):
 
 
 def topology_from_numpy(names, resnames, resid, resindex, chain, mass, charge, occupancy,
-                        bfactor, atomic_number, bonds=None):
+                        bfactor, atomic_number, bonds=None, bond_orders=None,
+                        formal_charge=None, type_names=None, molecules=None):
     """A :class:`~molar_tpu_torch.core.topology.Topology` from plain
     per-atom arrays: ``names``/``resnames`` strings (at most 8 characters),
-    ``chain`` one-character strings, the numeric columns, and ``bonds``
-    ``(K, 2)`` atom index pairs (or None). The selection language's
-    "weights": tests pass the JAX package's topology through its columns."""
+    ``chain`` one-character strings, the numeric columns, ``bonds`` ``(K,
+    2)`` atom index pairs (or None) with their ``bond_orders`` (K,), and
+    the optional columns ``formal_charge``, ``type_names`` (strings) and
+    ``molecules`` (inclusive ``[first, last]`` atom ranges). Tests pass the
+    JAX package's topology through its columns."""
     from .core.topology import Topology
 
     n = len(names)
@@ -67,7 +70,16 @@ def topology_from_numpy(names, resnames, resid, resindex, chain, mass, charge, o
     top.bfactor = np.asarray(bfactor, np.float32).copy()
     top.atomic_number = np.asarray(atomic_number, np.int16).copy()
     if bonds is not None:
-        top.set_bonds(bonds)
+        top.set_bonds(bonds, bond_orders)
+    elif bond_orders is not None:
+        raise ValueError("bond_orders given without bonds")
+    if formal_charge is not None:
+        top.formal_charge = np.asarray(formal_charge, np.int8).copy()
+    if type_names is not None:
+        top.type_pool.intern("")
+        top.type_name = top.type_pool.intern_all([str(s) for s in type_names])
+    if molecules is not None:
+        top.molecules = np.asarray(molecules, np.int32).reshape(-1, 2).copy()
     top.check_sizes()
     return top
 

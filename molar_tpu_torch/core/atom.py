@@ -5,18 +5,30 @@ molar/src/atom.rs:135-167): IO readers and test fixtures assemble ``Atom``s and
 :meth:`~molar_tpu.core.topology.Topology.from_atoms` scatters them into columns.
 Bulk code never touches ``Atom`` — it reads the columns directly.
 
-The port's own copy of the parts of ``molar_tpu.core.atom`` that
-:class:`~molar_tpu_torch.core.topology.Topology` and the GRO reader need
-(``Atom`` and its element guess; the port's topology carries no bond
-orders, so ``BondOrder`` is not copied).
+The port's own copy of ``molar_tpu.core.atom`` (numpy only).
 """
 
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass, replace
 from typing import Optional
 
 from . import periodic_table as pt
+
+IN_RING = 0x1
+AROMATIC = 0x2
+
+
+class BondOrder(enum.IntEnum):
+    """Chemical bond order; formats that don't record it yield UNSPECIFIED
+    (reference: molar/src/bond.rs:14-22)."""
+
+    UNSPECIFIED = 0
+    SINGLE = 1
+    DOUBLE = 2
+    TRIPLE = 3
+    AROMATIC = 4
 
 
 @dataclass
@@ -48,3 +60,16 @@ class Atom:
         :func:`molar_tpu.core.periodic_table.guess_element_from_name`."""
         z = pt.guess_element_from_name(self.name, self.resname)
         return replace(self, atomic_number=z, mass=pt.mass_of(z))
+
+    def guess_element(self) -> "Atom":
+        """Guess only Z, keeping an existing (file-provided) mass."""
+        z = pt.guess_element_from_name(self.name, self.resname)
+        return replace(self, atomic_number=z)
+
+    @property
+    def vdw(self) -> float:
+        return pt.vdw_radius(self.atomic_number)
+
+    @property
+    def element_symbol(self) -> str:
+        return pt.element_symbol(self.atomic_number)

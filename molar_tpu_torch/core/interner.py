@@ -43,6 +43,9 @@ class NamePool:
             self._strings.append(s)
         return code
 
+    def lookup(self, code: int) -> str:
+        return self._strings[code]
+
     def intern_all(self, strings: Sequence[str]) -> np.ndarray:
         """Vectorized interning of a list of strings -> int32 codes."""
         return np.fromiter((self.intern(s) for s in strings), dtype=np.int32, count=len(strings))
@@ -75,3 +78,6 @@ class NamePool:
 
     def __len__(self) -> int:
         return len(self._strings)
+
+    def __contains__(self, s: str) -> bool:
+        return s in self._index

@@ -1,15 +1,21 @@
-"""Periodic box: the port's subset of ``molar_tpu.core.pbc``.
+"""Periodic box: triclinic minimum-image, wrapping, box algebra.
 
-``PeriodicBox`` is host-side numpy (column convention: the matrix columns are
-the box vectors, as in the reference). ``PbcDims`` says which axes are
-periodic (the selection language's ``pbc yyn``). ``mat3_apply`` is the torch
-elementwise 3x3 apply; torch tensors never go through ``molar_tpu``'s
-numpy/JAX array functions.
+The port's copy of ``molar_tpu.core.pbc``. ``PeriodicBox`` is host-side
+numpy (column convention: the matrix columns are the box vectors, as in the
+reference), vectorized over point arrays; ``PbcDims`` says which axes are
+periodic (the selection language's ``pbc yyn``). The free functions
+``shortest_vector`` / ``wrap_coords`` take the box as plain numpy arrays.
+``wrap_point`` keeps the reference's sign quirk (a negative fractional part
+``f`` maps through ``1.0 - f``, periodic_box.rs:409-434);
+``wrap_conventional`` is the grid-population wrap ``f - floor(f)``.
+``mat3_apply`` is the torch elementwise 3x3 apply; torch tensors never go
+through the numpy functions here.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -97,7 +103,15 @@ class PeriodicBox:
 
     __slots__ = ("matrix", "inv", "corrections")
 
-    def __init__(self, matrix):
+    def __init__(self, matrix, angles: Sequence[float] | None = None):
+        if angles is not None:
+            # pymolar two-arg form: PeriodicBox([a, b, c], [alpha, beta,
+            # gamma]) (molar.pyi:61).
+            v = np.asarray(matrix, dtype=np.float64)
+            ang = np.asarray(angles, dtype=np.float64)
+            if v.shape != (3,) or ang.shape != (3,):
+                raise PeriodicBoxError("vectors+angles form needs two length-3 sequences")
+            matrix = PeriodicBox.from_vectors_angles(*v, *ang).matrix
         m = np.array(matrix, dtype=np.float32)
         if m.shape != (3, 3):
             raise PeriodicBoxError(f"box matrix must be 3x3, got {m.shape}")
@@ -175,26 +189,64 @@ class PeriodicBox:
         ])
 
     def shortest_vector(self, vec, pbc: PbcDims = PBC_FULL) -> np.ndarray:
-        """Minimum-image displacements of (..., 3) vectors, in float32 as
-        ``molar_tpu``'s ``PeriodicBox.shortest_vector``: the fractional round
-        on the periodic axes of ``pbc``, then, under full PBC only, the
-        shortest pruned correction where it is strictly shorter."""
+        """Minimum-image displacements of (..., 3) vectors, in float32: the
+        fractional round on the periodic axes of ``pbc``, then, under full
+        PBC only, the shortest pruned correction where it is strictly
+        shorter."""
         v = np.asarray(vec, dtype=np.float32)
-        frac = _mat3_np(self.inv, v)
-        if pbc.all:
-            frac = frac - np.round(frac)
-        elif pbc.any:
-            frac = np.where(pbc.as_array(), frac - np.round(frac), frac)
-        start = _mat3_np(self.matrix, frac)
-        if not self.corrections.shape[0] or not pbc.all:
-            return start
-        cands = start[..., None, :] + self.corrections
-        n2 = np.sum(cands * cands, axis=-1)
-        best = np.argmin(n2, axis=-1)
-        cand_best = np.take_along_axis(cands, best[..., None, None], axis=-2)[..., 0, :]
-        cand_n2 = np.take_along_axis(n2, best[..., None], axis=-1)[..., 0]
-        shorter = cand_n2 < np.sum(start * start, axis=-1)
-        return np.where(shorter[..., None], cand_best, start)
+        return shortest_vector(v, self.matrix, self.inv, self.corrections, pbc.as_tuple())
+
+    def distance_squared(self, p1, p2, pbc: PbcDims = PBC_FULL):
+        d = self.shortest_vector(np.asarray(p2, np.float32) - np.asarray(p1, np.float32), pbc)
+        return np.sum(d * d, axis=-1)
+
+    def distance(self, p1, p2, pbc: PbcDims = PBC_FULL):
+        return np.sqrt(self.distance_squared(p1, p2, pbc))
+
+    def closest_image(self, point, target, pbc: PbcDims = PBC_FULL) -> np.ndarray:
+        t = np.asarray(target, dtype=np.float32)
+        return t + self.shortest_vector(np.asarray(point, np.float32) - t, pbc)
+
+    def wrap_point(self, p) -> np.ndarray:
+        """Reference-compatible wrap, including its negative-fraction quirk
+        (``1.0 - fract`` for fract < 0; periodic_box.rs:409-434)."""
+        frac = np.asarray(p, dtype=np.float32) @ self.inv.T
+        frac = frac - np.trunc(frac)  # Rust fract(): keeps the sign
+        frac = np.where(frac < 0.0, 1.0 - frac, frac)
+        return (frac @ self.matrix.T).astype(np.float32)
+
+    def wrap_conventional(self, coords) -> np.ndarray:
+        """Wrap into [0,1)^3 fractional (the grid-population wrap)."""
+        return wrap_coords(np.asarray(coords, dtype=np.float32), self.matrix, self.inv)
+
+    def to_box_coords(self, vec) -> np.ndarray:
+        return np.asarray(vec, dtype=np.float32) @ self.inv.T
+
+    def to_lab_coords(self, vec) -> np.ndarray:
+        return np.asarray(vec, dtype=np.float32) @ self.matrix.T
+
+    def is_inside(self, point) -> np.ndarray:
+        f = self.to_box_coords(point)
+        return np.all((f >= 0.0) & (f < 1.0), axis=-1)
+
+    def lab_extents(self) -> np.ndarray:
+        """Per-axis lab-frame extent: row sums of the matrix."""
+        return self.matrix.sum(axis=1).astype(np.float32)
+
+    def scale_vectors(self, factors: Sequence[float]) -> "PeriodicBox":
+        """A new box with each box vector scaled (functional, unlike the
+        reference's in-place periodic_box.rs:393-403)."""
+        return PeriodicBox(self.matrix * np.asarray(factors, dtype=np.float32)[None, :])
+
+    # pymolar getter aliases (molar.pyi:66-70)
+    def get_matrix(self) -> np.ndarray:
+        return self.matrix
+
+    def get_box_extents(self) -> np.ndarray:
+        return self.box_extents()
+
+    def get_lab_extents(self) -> np.ndarray:
+        return self.lab_extents()
 
     def padded_corrections(self) -> np.ndarray:
         """(26, 3) corrections, zero-padded, whatever the box kind."""
@@ -203,6 +255,42 @@ class PeriodicBox:
         if k:
             out[:k] = self.corrections
         return out
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, PeriodicBox) and np.array_equal(self.matrix, other.matrix)
+
+    def __repr__(self) -> str:
+        v, a = self.to_vectors_angles()
+        return f"PeriodicBox(lengths={v.tolist()}, angles={a.tolist()})"
+
+
+def shortest_vector(vec, matrix, inv, corrections, pbc_dims=(True, True, True)) -> np.ndarray:
+    """Minimum-image displacement(s) of (..., 3) numpy row vectors; the box
+    as plain arrays. Triclinic correction applies only under full PBC
+    (periodic_box.rs:301-318)."""
+    frac = _mat3_np(inv, vec)
+    if all(pbc_dims):
+        frac = frac - np.round(frac)
+    elif any(pbc_dims):
+        frac = np.where(np.array(pbc_dims, dtype=bool), frac - np.round(frac), frac)
+    start = _mat3_np(matrix, frac)
+    if corrections.shape[0] == 0 or not all(pbc_dims):
+        return start
+    cands = start[..., None, :] + corrections
+    n2 = np.sum(cands * cands, axis=-1)
+    best = np.argmin(n2, axis=-1)
+    cand_best = np.take_along_axis(cands, best[..., None, None], axis=-2)[..., 0, :]
+    cand_n2 = np.take_along_axis(n2, best[..., None], axis=-1)[..., 0]
+    shorter = cand_n2 < np.sum(start * start, axis=-1)
+    return np.where(shorter[..., None], cand_best, start)
+
+
+def wrap_coords(coords, matrix, inv) -> np.ndarray:
+    """Conventional wrap into the primary cell: frac -> frac - floor(frac)
+    (the distance-search grid's wrap, distance_search.rs:184-189), not the
+    ``wrap_point`` quirk."""
+    frac = _mat3_np(inv, coords)
+    return _mat3_np(matrix, frac - np.floor(frac))
 
 
 def _mat3_np(m: np.ndarray, vecs: np.ndarray) -> np.ndarray:

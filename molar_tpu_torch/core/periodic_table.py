@@ -100,11 +100,39 @@ ELEMENT_VDW_NM = (ELEMENT_VDW_ANGSTROM * FLOAT(0.1)).astype(FLOAT)
 _SYMBOL_TO_Z = {s: z for z, s in enumerate(ELEMENT_NAMES_UPPER)}
 
 
+def vdw_radius(atomic_number: int) -> float:
+    """vdW radius in nm for an atomic number; 0.15 nm for the unknown element."""
+    if 0 <= atomic_number < NUM_ELEMENTS:
+        return float(ELEMENT_VDW_NM[atomic_number])
+    return 0.15
+
+
 def mass_of(atomic_number: int) -> float:
     """Standard atomic weight in amu; 0.0 for the unknown element."""
     if 0 <= atomic_number < NUM_ELEMENTS:
         return float(ELEMENT_MASSES[atomic_number])
     return 0.0
+
+
+def atomic_number_from_symbol(symbol: str) -> int:
+    """Resolve an *explicit* element symbol ("Cl", "SE", "c") to Z, else 0.
+
+    Use when the source states the element outright (PDB element column
+    77-78); an explicit symbol always beats name-based guessing (reference:
+    molar/src/atom.rs:327 and the "SG is not seaborgium" rule). A blank
+    field means "not stated" and yields 0.
+    """
+    up = symbol.strip().upper()
+    if not up:
+        return 0
+    return _SYMBOL_TO_Z.get(up, 0)
+
+
+def element_symbol(atomic_number: int) -> str:
+    """Mixed-case element symbol for Z; '' when unknown/out of range."""
+    if 1 <= atomic_number < NUM_ELEMENTS:
+        return ELEMENT_NAMES[atomic_number]
+    return ""
 
 
 def guess_element_from_name(name: str, resname: str = "") -> int:

@@ -1,9 +1,9 @@
 """Per-frame host state, and a window of frames as tensors.
 
 ``State`` is the port's copy of ``molar_tpu.core.state.State`` (numpy
-only). :class:`FrameBatch` is the counterpart of the JAX package's
-``FrameBatch`` pytree: the same fields as torch tensors, moved with
-:meth:`FrameBatch.to` (no pytree registration).
+only), with :func:`make_fake_state`. :class:`FrameBatch` is the
+counterpart of the JAX package's ``FrameBatch`` pytree: the same fields as
+torch tensors, moved with :meth:`FrameBatch.to` (no pytree registration).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 from .pbc import PeriodicBox
 
-__all__ = ["State", "FrameBatch"]
+__all__ = ["State", "FrameBatch", "make_fake_state"]
 
 
 @dataclass
@@ -35,10 +35,42 @@ class State:
     def __len__(self) -> int:
         return self.n_atoms
 
+    @property
+    def has_velocities(self) -> bool:
+        return self.velocities is not None
+
+    @property
+    def has_forces(self) -> bool:
+        return self.forces is not None
+
     def require_box(self) -> PeriodicBox:
         if self.box is None:
             raise ValueError("operation requires a periodic box, but state has none")
         return self.box
+
+    def set_box_from(self, src) -> None:
+        """Copy the box of ``src`` (System/Sel/State) — molar.pyi:54. A
+        fresh PeriodicBox, never an alias."""
+        b = src.box if isinstance(src, State) else src.state.box
+        self.box = None if b is None else PeriodicBox(b.matrix.copy())
+
+    def copy(self) -> "State":
+        return State(
+            coords=self.coords.copy(),
+            velocities=None if self.velocities is None else self.velocities.copy(),
+            forces=None if self.forces is None else self.forces.copy(),
+            time=self.time,
+            box=self.box,
+            step=self.step,
+        )
+
+
+def make_fake_state(n: int, box_side: float = 10.0) -> State:
+    """Deterministic fixture state: atom i at (i, i, i), cubic box
+    (reference: state.rs:88-96 ``new_fake``)."""
+    coords = np.repeat(np.arange(n, dtype=np.float32)[:, None], 3, axis=1)
+    box = PeriodicBox(np.diag([box_side, box_side, box_side]).astype(np.float32))
+    return State(coords=coords, box=box)
 
 
 @dataclass

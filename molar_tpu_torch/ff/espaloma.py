@@ -336,22 +336,37 @@ def espaloma_charges(z, fc, bonds, device=None) -> np.ndarray:
     return equilibrate(e, s)
 
 
-def apply_charges(system, indices=None, device=None) -> np.ndarray:
-    """Charge the atoms ``indices`` (None: all; e.g. from
-    ``System.select_indices``) of a :class:`~molar_tpu_torch.core.system.System`
-    and write them into ``topology.charge``. Bonds with an atom outside the
-    selection are dropped. The port's topology has no bond-order or
-    formal-charge column, so every order is 1 and every formal charge 0, as
-    the reference does when those columns are absent."""
-    top = system.topology
-    idx = (np.arange(top.n_atoms) if indices is None
-           else np.asarray(indices, np.int64).reshape(-1))
+def apply_charges(sel_or_system, indices=None, device=None) -> np.ndarray:
+    """Compute espaloma charges and write the charge column (reference
+    SystemPy.apply_charges): of a :class:`~molar_tpu_torch.core.system.Sel`,
+    of a whole :class:`~molar_tpu_torch.core.system.System`, or of the atoms
+    ``indices`` of a System (e.g. from ``System.select_indices``). Bond
+    orders and formal charges come from the topology's columns (order 1 and
+    charge 0 where a column is absent, an order 0 counting as 1); bonds with
+    an atom outside the selection are dropped. The forward runs on
+    ``device`` (None: the card)."""
+    from ..core.system import Sel
+
+    if isinstance(sel_or_system, Sel):
+        if indices is not None:
+            raise ValueError("indices are taken from the Sel; pass a System with indices")
+        idx = sel_or_system.indices
+    else:
+        idx = (np.arange(sel_or_system.topology.n_atoms) if indices is None
+               else np.asarray(indices, np.int64).reshape(-1))
+    top = sel_or_system.topology
     local = {int(g): k for k, g in enumerate(idx)}
+    fc = (top.formal_charge[idx] if top.formal_charge is not None
+          else np.zeros(len(idx), np.int64))
+    orders = top.bond_orders
     in_sel = np.zeros(top.n_atoms, dtype=bool)
     in_sel[idx] = True
-    bonds = [(local[int(a)], local[int(b)], 1) for a, b in top.bonds
-             if in_sel[a] and in_sel[b]]
-    q = espaloma_charges(top.atomic_number[idx], np.zeros(len(idx), np.int64), bonds,
-                         device=device)
+    bonds = []
+    for bi in range(top.n_bonds):
+        a, b = int(top.bonds[bi, 0]), int(top.bonds[bi, 1])
+        if in_sel[a] and in_sel[b]:
+            o = int(orders[bi]) if orders is not None else 1
+            bonds.append((local[a], local[b], max(o, 1)))
+    q = espaloma_charges(top.atomic_number[idx], fc, bonds, device=device)
     top.charge[idx] = q.astype(top.charge.dtype)
     return q

@@ -1,8 +1,9 @@
 """DCD trajectories (CHARMM/NAMD Fortran-record binary): the writer that
 trjconv streams into, and a reader for checking what was written.
 
-The port's copy of the parts of ``molar_tpu.io.dcd.DcdHandler`` that trjconv
-and its checks need (reference: molar/src/io/dcd_handler.rs). Fortran
+The port of ``molar_tpu.io.dcd.DcdHandler`` (reference:
+molar/src/io/dcd_handler.rs): random access by frame, the facade's
+``read_state`` / seeks, and the writer trjconv streams into. Fortran
 records (i32 byte-count fore and aft); endianness from the first record
 length (84); a 'CORD' header with icntrl ints: n_frames @4, istart @8,
 nsavc @12, n_fixed @32, delta @36 (f32 if the CHARMM flag @76 is set, f64
@@ -25,18 +26,7 @@ import numpy as np
 
 from ..core.pbc import PeriodicBox, PeriodicBoxError
 from ..core.state import State
-
-
-class DcdError(RuntimeError):
-    pass
-
-
-class MalformedFileError(DcdError):
-    pass
-
-
-class SeekError(DcdError):
-    pass
+from .base import EmptyFileError, FormatHandler, MalformedFileError, NotWritableError, SeekError
 
 
 def _parse_unit_cell(cell: np.ndarray) -> Optional[PeriodicBox]:
@@ -55,16 +45,21 @@ def _parse_unit_cell(cell: np.ndarray) -> Optional[PeriodicBox]:
         return None
 
 
-class DcdHandler:
+class DcdHandler(FormatHandler):
+    can_read_state = True
+    can_write = True
+    can_seek = True
+
     def __init__(self, path: str, mode: str = "r"):
         self.path = path
         self.mode = mode
+        self._pos = 0  # next frame read_state returns
         self._mm = None
         if mode == "r":
             self._fh = open(path, "rb")
             try:
                 if os.fstat(self._fh.fileno()).st_size == 0:
-                    raise MalformedFileError(f"dcd file is empty: {path}")
+                    raise EmptyFileError(f"dcd file is empty: {path}")
                 self._mm = mmap.mmap(self._fh.fileno(), 0, access=mmap.ACCESS_READ)
                 self._buf = memoryview(self._mm)
                 self._read_header()
@@ -76,12 +71,6 @@ class DcdHandler:
             self._n_atoms: Optional[int] = None
         else:
             raise ValueError(f"bad mode {mode!r}")
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.close()
 
     # -- reading ----------------------------------------------------------------
 
@@ -135,6 +124,11 @@ class DcdHandler:
     def n_atoms(self) -> int:
         return self._natoms
 
+    @property
+    def times(self) -> np.ndarray:
+        fr = np.arange(self._n_frames)
+        return ((self._istart + fr * self._nsavc) * self._delta).astype(np.float32)
+
     def read_frame(self, i: int) -> State:
         """Frame ``i`` as a host :class:`State` (nm)."""
         if not 0 <= i < self._n_frames:
@@ -158,6 +152,35 @@ class DcdHandler:
         step = self._istart + i * self._nsavc
         return State(coords=coords, time=float(step * self._delta), step=step, box=box)
 
+    def read_state(self) -> Optional[State]:
+        """The next frame, or None past the last."""
+        if self._pos >= self._n_frames:
+            return None
+        st = self.read_frame(self._pos)
+        self._pos += 1
+        return st
+
+    # -- seeking ----------------------------------------------------------------
+
+    def seek_frame(self, fr: int) -> None:
+        if not 0 <= fr < self._n_frames:
+            raise SeekError(f"frame {fr} out of range")
+        self._pos = fr
+
+    def seek_time(self, t: float) -> None:
+        """Next read at the first frame whose time is >= ``t``."""
+        i = int(np.searchsorted(self.times, t))
+        if i >= self._n_frames:
+            raise SeekError(f"time {t} beyond end of trajectory")
+        self._pos = i
+
+    def seek_last(self) -> State:
+        self._pos = self._n_frames - 1
+        return self.read_state()
+
+    def tell_first(self) -> tuple[int, float]:
+        return self._istart, float(self.times[0])
+
     # -- writing ----------------------------------------------------------------
 
     def _write_header(self, n_atoms: int) -> None:
@@ -177,16 +200,17 @@ class DcdHandler:
 
     def _start_frame(self, n: int) -> None:
         if self.mode != "w":
-            raise DcdError("dcd handler opened read-only")
+            raise NotWritableError("dcd handler opened read-only")
         if self._n_atoms is None:
             self._n_atoms = n
             self._write_header(n)
         elif n != self._n_atoms:
             raise MalformedFileError("dcd frames must have a constant atom count")
 
-    def write(self, state: State, indices=None) -> None:
+    def write(self, topology, state: State, indices=None) -> None:
         """Append the rows ``indices`` (None: all) of a host state; the unit
-        cell from its box's lengths and angles (zeros without a box)."""
+        cell from its box's lengths and angles (zeros without a box).
+        ``topology`` is not read."""
         idx = slice(None) if indices is None else np.asarray(indices)
         coords = np.asarray(state.coords[idx], dtype=np.float64) * 10.0
         n = coords.shape[0]

@@ -1,12 +1,14 @@
 """XTC reading and writing over the repository's C++ codec.
 
-The slice's subset of ``molar_tpu.io.xtc.XtcHandler``: the file is
-memory-mapped and indexed up front (exact random access), windows of frames
-decode in parallel threads (ctypes releases the GIL inside the codec; one
-pool a handler, closed with it), and
-``read_frames_i16`` returns the stream's raw quantized ints for the
-half-/quarter-byte window transports. Coordinates are nm, box rows on disk
-are vectors (transposed into the column convention here).
+The port of ``molar_tpu.io.xtc.XtcHandler``: the file is memory-mapped
+and indexed up front (exact random access), windows of frames decode in
+parallel threads (ctypes releases the GIL inside the codec; one pool a
+handler, closed with it), and ``read_frames_i16`` returns the stream's raw
+quantized ints for the half-/quarter-byte window transports. As a
+:class:`~.base.FormatHandler` of the facade it reads states in order
+(``read_state``), seeks by frame or time and appends frames (``write``).
+Coordinates are nm, box rows on disk are vectors (transposed into the
+column convention here).
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ from typing import Optional
 import numpy as np
 
 from ..core.pbc import PeriodicBox, PeriodicBoxError
+from ..core.state import State
 from ..native import load as load_native
+from .base import EmptyFileError, FormatHandler, MalformedFileError, NotWritableError, SeekError
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _f32p = ctypes.POINTER(ctypes.c_float)
@@ -35,18 +39,6 @@ _i16p = ctypes.POINTER(ctypes.c_int16)
 #: 0.15-0.44 on 8 (three calls); the prefix decode of a 4,000-row subset
 #: does not care (0.14-0.26 s for 1,024 frames at any count).
 DECODE_WORKERS = 8
-
-
-class XtcError(RuntimeError):
-    pass
-
-
-class MalformedFileError(XtcError):
-    pass
-
-
-class SeekError(XtcError):
-    pass
 
 
 @dataclass
@@ -67,7 +59,11 @@ def _box_from_rows(box9: np.ndarray) -> Optional[PeriodicBox]:
         return None
 
 
-class XtcHandler:
+class XtcHandler(FormatHandler):
+    can_read_state = True
+    can_write = True
+    can_seek = True
+
     # Run-group overshoot slack rows of the prefix decoders (xtc_codec.cpp).
     PREFIX_SLACK = 10
 
@@ -78,27 +74,22 @@ class XtcHandler:
         self._mm: Optional[mmap.mmap] = None
         self._sticky: Optional[int] = None
         self._pool: Optional[ThreadPoolExecutor] = None
+        self._pos = 0  # next frame read_state returns
         if mode == "r":
             self._fh = open(path, "rb")
             try:
                 if os.fstat(self._fh.fileno()).st_size == 0:
-                    raise MalformedFileError(f"xtc file is empty: {path}")
+                    raise EmptyFileError(f"xtc file is empty: {path}")
                 self._mm = mmap.mmap(self._fh.fileno(), 0, access=mmap.ACCESS_READ)
                 self._data = np.frombuffer(self._mm, dtype=np.uint8)
                 self._index()
             except BaseException:
                 self.close()
                 raise
-        elif mode == "w":
-            self._fh = open(path, "wb")
+        elif mode in ("w", "a"):
+            self._fh = open(path, mode + "b")
         else:
             raise ValueError(f"bad mode {mode!r}")
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.close()
 
     def _addr(self, offset: int):
         return self._data[offset:].ctypes.data_as(_u8p)
@@ -122,6 +113,7 @@ class XtcHandler:
         if n <= 0:
             raise MalformedFileError(f"no valid xtc frames in {self.path}")
         self._offsets = offsets[:n].copy()
+        self._steps = steps[:n].copy()
         self._times = times[:n].copy()
         self._natoms = int(natoms.value)
 
@@ -315,6 +307,42 @@ class XtcHandler:
             icoords = icoords[:, :n_rows]
         return icoords, scale, boxes, times
 
+    # -- FormatHandler interface ------------------------------------------------
+
+    def read_state(self) -> Optional[State]:
+        """The next frame as a host :class:`State`, or None past the last."""
+        if self._pos >= self.n_frames:
+            return None
+        fr = self.read_frame(self._pos)
+        self._pos += 1
+        return State(coords=fr.coords, time=fr.time, step=fr.step, box=fr.box)
+
+    def seek_frame(self, fr: int) -> None:
+        if not 0 <= fr < self.n_frames:
+            raise SeekError(f"frame {fr} out of range")
+        self._pos = fr
+
+    def seek_time(self, t: float) -> None:
+        """Next read at the first frame whose time is >= ``t``."""
+        i = int(np.searchsorted(self._times, t))
+        if i >= self.n_frames:
+            raise SeekError(f"time {t} beyond end of trajectory")
+        self._pos = i
+
+    def seek_last(self) -> State:
+        self._pos = self.n_frames - 1
+        return self.read_state()
+
+    def tell_first(self) -> tuple[int, float]:
+        return int(self._steps[0]), float(self._times[0])
+
+    def write(self, topology, state: State, indices=None) -> None:
+        """Append the rows ``indices`` (None: all) of ``state``, its box,
+        step and time (``topology`` is not read)."""
+        coords = state.coords if indices is None else state.coords[indices]
+        self.write_raw(coords, None if state.box is None else state.box.matrix,
+                       state.step, state.time)
+
     def write_raw(
         self,
         coords: np.ndarray,
@@ -324,7 +352,7 @@ class XtcHandler:
         precision: float = 1000.0,
     ) -> None:
         if self.mode == "r":
-            raise XtcError("xtc handler opened read-only")
+            raise NotWritableError("xtc handler opened read-only")
         box9 = (
             np.zeros((3, 3), np.float32)
             if box_matrix is None

@@ -8,8 +8,9 @@ The torch counterpart of ``molar_tpu.tasks.trajectory``'s device half:
 ``TrajectoryReader.iter_windows`` is the XTC contiguous-chunk path with the
 three wire forms (plain f32, raw i16 quantized ints, i8 frame-to-frame
 deltas); :func:`decode_window_coords` expands them on the device,
-bit-identical to the host float decode. The tunnel-only chunked forms of
-``molar_tpu`` are not ported.
+bit-identical to the host float decode. Any other format the IO facade
+reads (PDB, GRO, XYZ, DCD) goes through serial state reads in plain f32.
+The tunnel-only chunked forms of ``molar_tpu`` are not ported.
 
 :class:`WindowAnalysisTask` is the user-facing harness on top: the standard
 flags (:func:`build_arg_parser`; ``-b/-e`` take :class:`FrameSpec`'s
@@ -19,6 +20,10 @@ task's own over device tensors, streamed through :class:`WindowPipeline`.
 The pipeline, the overflow retry and the task take a ``mesh``: each window's
 frames sharded over several devices by a
 :class:`~molar_tpu_torch.parallel.mesh.MeshWindowRunner`.
+
+:class:`AnalysisTask` is the reference-compatible per-frame harness
+(pymolar's hooks over a ``System`` with each frame swapped in), on the host
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from ..convert import transport_to_torch
+from ..io import FileHandler, handler_factory
 from ..io.xtc import XtcHandler
 from ..parallel.mesh import as_runner, frame_mesh
 
@@ -115,7 +121,9 @@ class TrajectoryReader:
     ``end``, in frame order across the files, as ``analysis_task.rs``'s
     runner does: frames after it are never read, even where a later file's
     times restart below the end time. ``begin`` is a filter, frame by
-    frame."""
+    frame. Each path is any format :class:`~molar_tpu_torch.io.FileHandler`
+    reads; another raises here (``FormatNotPortedError``, a
+    ``NotImplementedError``, for a format not yet ported)."""
 
     def __init__(
         self,
@@ -126,14 +134,40 @@ class TrajectoryReader:
     ):
         self.paths = [str(p) for p in paths]
         for p in self.paths:
-            if not p.lower().endswith(".xtc"):
-                raise NotImplementedError(f"only XTC trajectories are ported: {p}")
+            handler_factory(p)
         self.begin = _spec(begin)
         self.end = _spec(end)
         self.skip = max(skip, 1)
         #: Host seconds of the windows read so far: the codec's decode, and
         #: packing its output into the wire form (gather, diff, cast).
         self.timings = {"decode": 0.0, "pack": 0.0}
+
+    def _want(self, fr: int, t: float) -> bool:
+        return not ((self.begin.frame is not None and fr < self.begin.frame)
+                    or (self.begin.time is not None and t < self.begin.time))
+
+    def _past_end(self, fr: int, t: float) -> bool:
+        return ((self.end.frame is not None and fr > self.end.frame)
+                or (self.end.time is not None and t > self.end.time))
+
+    def iter_states(self):
+        """Yield ``(global_frame_index, State)``, serially through the IO
+        facade's prefetching iteration; ``skip`` decimates the frames
+        inside the begin/end window with its phase carried across files
+        (analysis_task.rs:205-234)."""
+        fr = -1
+        in_window = 0
+        for path in self.paths:
+            with FileHandler(path) as fh:
+                for st in fh.iter_states():
+                    fr += 1
+                    if self._past_end(fr, st.time):
+                        return
+                    if not self._want(fr, st.time):
+                        continue
+                    if in_window % self.skip == 0:
+                        yield fr, st
+                    in_window += 1
 
     def iter_windows(self, window: int, quantized=False, subset=None, alloc=None):
         """Yield ``(coords, boxes (B,3,3), invs, times, frame_ids)``.
@@ -146,7 +180,8 @@ class TrajectoryReader:
         indices decodes only the file's atom prefix. ``alloc(shape, dtype)
         -> ndarray`` places the coordinate arrays of a contiguous chunk (a
         :class:`StagingRing`'s pinned memory); the codec decodes straight
-        into it when the chunk needs no packing.
+        into it when the chunk needs no packing. A file that is not an XTC
+        is read state by state (:meth:`_iter_serial`) and ships plain f32.
         """
         sub = None if subset is None else np.asarray(subset, dtype=np.intp)
         fr_base = 0
@@ -154,6 +189,12 @@ class TrajectoryReader:
         for path in self.paths:
             if self.end.frame is not None and fr_base > self.end.frame:
                 return
+            if not path.lower().endswith(".xtc"):
+                fr_base, n_eligible, ended = yield from self._iter_serial(
+                    path, window, sub, fr_base, n_eligible)
+                if ended:
+                    return
+                continue
             with XtcHandler(path) as h:
                 n = h.n_frames
                 ids = np.arange(fr_base, fr_base + n)
@@ -198,6 +239,46 @@ class TrajectoryReader:
             if n_read < n:
                 return
             fr_base += n
+
+    def _iter_serial(self, path, window, sub, fr, n_eligible):
+        """Windows of ``path`` read state by state through the facade, its
+        first frame numbered ``fr``, ``n_eligible`` frames eligible before
+        it (the skip phase) -> returns ``(next frame id, n_eligible, whether
+        the stream ended past the end)``."""
+        buf_c, buf_b, buf_t, buf_i = [], [], [], []
+
+        def flush():
+            boxes = np.stack(buf_b)
+            out = (np.stack(buf_c), boxes, _invert_boxes(boxes),
+                   np.asarray(buf_t, np.float32), np.asarray(buf_i))
+            for b in (buf_c, buf_b, buf_t, buf_i):
+                b.clear()
+            return out
+
+        ended = False
+        with FileHandler(path) as fh:
+            t0 = time.perf_counter()
+            for st in fh.iter_states(prefetch=0):
+                self._lap("decode", t0)
+                if self._past_end(fr, st.time):
+                    ended = True
+                    break
+                if self._want(fr, st.time):
+                    if n_eligible % self.skip == 0:
+                        c = st.coords if sub is None else st.coords[sub]
+                        buf_c.append(c.astype(np.float32))
+                        buf_b.append(st.box.matrix if st.box is not None
+                                     else np.eye(3, dtype=np.float32))
+                        buf_t.append(st.time)
+                        buf_i.append(fr)
+                    n_eligible += 1
+                fr += 1
+                if len(buf_c) == window:
+                    yield flush()
+                t0 = time.perf_counter()
+        if buf_c:
+            yield flush()
+        return fr, n_eligible, ended
 
     def _read_chunk(self, h, start, count, quantized, sub, n_prefix, alloc):
         """One contiguous chunk in its wire form. What is shipped lies in
@@ -280,7 +361,7 @@ def auto_window(
     target_bytes: int = AUTO_WINDOW_TARGET_BYTES,
     max_window: int = AUTO_WINDOW_MAX,
 ) -> int:
-    """Pick a window size for a :data:`WIRE` stream of the XTC ``path``.
+    """Pick a window size for a :data:`WIRE` stream of ``path``.
 
     ``requested`` > 0 wins unchanged. Otherwise the window grows until one
     window's wire (``WIRE_BYTES[WIRE]`` x rows x frames, rows = ``len(subset)``
@@ -290,14 +371,17 @@ def auto_window(
     rounded down to a multiple of 16 and clamped to ``max_window``; below
     16 (huge frames) it falls in powers of two, but not below
     :data:`AUTO_WINDOW_MIN` (the JAX package goes down to 1: on the H100 a
-    shorter window starves the decode pool). Never longer than the file. A
-    path that is not an XTC raises, as :class:`TrajectoryReader` does."""
+    shorter window starves the decode pool). Never longer than the file,
+    where the format knows its frame count up front (XTC, DCD); another
+    format's first frame gives the row count."""
     if requested:
         return requested
-    if not str(path).lower().endswith(".xtc"):
-        raise NotImplementedError(f"only XTC trajectories are ported: {path}")
-    with XtcHandler(str(path)) as h:
-        n_frames, n_atoms = h.n_frames, h.n_atoms
+    with FileHandler(str(path)) as fh:
+        h = fh.handler
+        if hasattr(h, "n_frames"):
+            n_frames, n_atoms = h.n_frames, h.n_atoms
+        else:
+            n_frames, n_atoms = max_window, fh.read_state().n_atoms
     rows = n_atoms if subset is None else len(subset)
     w = target_bytes // max(1, WIRE_BYTES[WIRE] * rows)
     if w < 16:
@@ -526,10 +610,10 @@ def run_with_overflow_retry(
     The pass never syncs per window: overflow flags stay on the device and
     are read with one device->host copy after the pass. Only flagged
     windows are re-read (by frame range, skip phase preserved) and re-run
-    at tiers 1.. until clean, with the same ``subset`` of atom rows. An XTC
-    window never spans two files, so the
-    by-range re-read reproduces its frames exactly (``molar_tpu``'s
-    per-frame re-read fallback serves its non-XTC readers, not ported).
+    at tiers 1.. until clean, with the same ``subset`` of atom rows. A
+    window never spans two files, so the by-range re-read reproduces its
+    frames exactly (``molar_tpu``'s per-frame re-read fallback is not
+    needed).
     Raises :class:`AnalysisError` if the last tier still overflows. Returns
     ``(results, retried_window_count)`` with ``results`` a list of
     ``(frame_ids, result)`` in stream order. ``mesh`` (a list of devices or
@@ -574,8 +658,8 @@ def run_with_overflow_retry(
 
 def build_arg_parser(description: str = "trajectory analysis") -> argparse.ArgumentParser:
     """The reference TrajAnalysisArgs flag set (-f/-b/-e/--skip/--log),
-    ``--window`` and ``--mesh`` (each window's frames sharded over that many
-    devices)."""
+    ``--window``, ``--mesh`` (each window's frames sharded over that many
+    devices) and ``--add-time`` (read by :class:`AnalysisTask`)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("-f", "--files", nargs="+", required=True,
                    help="structure file followed by trajectory file(s)")
@@ -587,6 +671,9 @@ def build_arg_parser(description: str = "trajectory analysis") -> argparse.Argum
                    help="frames per device window (0 = auto_window from the stream's rows)")
     p.add_argument("--mesh", type=int, default=0,
                    help="shard each window's frames over this many devices (0: one device)")
+    p.add_argument("--add-time", action="store_true", dest="add_time",
+                   help="offset times so they keep increasing across concatenated "
+                   "trajectories (pymolar AnalysisTask parity)")
     return p
 
 
@@ -697,3 +784,107 @@ class _Decoded(torch.nn.Module):
 
     def forward(self, transport, boxes, invs):
         return self.window_fn(decode_window_coords(transport), boxes, invs)
+
+
+@dataclass
+class AnalysisContext:
+    """The reference AnalysisContext {sys, consumed_frames, args}
+    (analysis_task.rs:309-313)."""
+
+    system: "object"
+    consumed_frames: int
+    args: argparse.Namespace
+
+
+class AnalysisTask:
+    """Reference-compatible per-frame analysis harness, on the host.
+
+    Subclass and implement ``pre_process`` / ``process_frame`` /
+    ``post_process`` (the Python-binding hook names,
+    molar_python/python/pymolar/__init__.py:26-146); ``register_args`` (or
+    ``add_args``) adds flags. ``run()`` parses the standard flags
+    (:func:`build_arg_parser`), reads the structure file, streams the
+    frames (:meth:`TrajectoryReader.iter_states`), swaps each into the
+    system and calls the hooks, logging progress every ``--log`` frames.
+
+    Hooks take either zero arguments (verbatim pymolar tasks) or an
+    :class:`AnalysisContext`; the signature is inspected once a hook. As in
+    pymolar, ``pre_process`` fires when the first frame arrives, with
+    ``self.state`` set and ``self.src`` (the system) already holding it.
+    ``--add-time`` offsets the times of a file whose clock restarts so
+    they keep increasing. ``--window`` and ``--mesh`` are not read.
+    """
+
+    task_name = "analysis"
+
+    def add_args(self, parser: argparse.ArgumentParser) -> None:
+        if hasattr(self, "register_args"):
+            self.register_args(parser)
+
+    def pre_process(self, ctx: AnalysisContext) -> None:
+        pass
+
+    def process_frame(self, ctx: AnalysisContext) -> None:
+        pass
+
+    def post_process(self, ctx: AnalysisContext) -> None:
+        pass
+
+    def _call_hook(self, name: str, ctx: AnalysisContext) -> None:
+        """Call hook ``name`` with ``ctx``, or with no argument when its
+        signature takes none (decided once a hook name)."""
+        cache = self.__dict__.setdefault("_hook_arity", {})
+        fn = getattr(self, name)
+        takes_ctx = cache.get(name)
+        if takes_ctx is None:
+            import inspect
+
+            try:
+                takes_ctx = any(
+                    q.kind in (q.POSITIONAL_ONLY, q.POSITIONAL_OR_KEYWORD, q.VAR_POSITIONAL)
+                    for q in inspect.signature(fn).parameters.values())
+            except (TypeError, ValueError):
+                takes_ctx = True
+            cache[name] = takes_ctx
+        if takes_ctx:
+            fn(ctx)
+        else:
+            fn()
+
+    def run(self, argv: Optional[Sequence[str]] = None) -> AnalysisContext:
+        """Parse ``argv``, stream the frames through the hooks -> the
+        context (``consumed_frames`` counts the frames processed)."""
+        from ..core.system import System
+
+        parser = build_arg_parser(self.task_name)
+        self.add_args(parser)
+        args = parser.parse_args(argv)
+        structure, *trajectories = args.files
+        system = System.from_file(structure)
+        self.src = system
+        self.args = args
+        reader = TrajectoryReader(trajectories or [structure], begin=FrameSpec.parse(args.begin),
+                                  end=FrameSpec.parse(args.end), skip=args.skip)
+        ctx = AnalysisContext(system=system, consumed_frames=0, args=args)
+        t0 = time.perf_counter()
+        time_offset = 0.0
+        last_time = None
+        for fr, st in reader.iter_states():
+            if args.add_time:
+                if last_time is not None and st.time + time_offset <= last_time:
+                    time_offset = last_time  # a new file restarted its clock
+                st.time += time_offset
+                last_time = st.time
+            if st.n_atoms != system.n_atoms:
+                raise AnalysisError(f"frame has {st.n_atoms} atoms, system has {system.n_atoms}")
+            system.set_state(st)
+            self.state = st
+            if ctx.consumed_frames == 0:
+                self._call_hook("pre_process", ctx)
+            self._call_hook("process_frame", ctx)
+            ctx.consumed_frames += 1
+            if args.log_every and ctx.consumed_frames % args.log_every == 0:
+                log.info("frame %d (t=%.1f ps), %.1f frames/s", fr, st.time,
+                         ctx.consumed_frames / (time.perf_counter() - t0))
+        self._call_hook("post_process", ctx)
+        return ctx

@@ -9,8 +9,9 @@ the reference's numpy walk and with its jitted JAX forward (JAX on the
 CPU) within the bar of ``tests/test_espaloma.py`` (e and s 1e-5, charges
 1e-4). Pad rows change no real row; the backend switch mirrors the
 reference's; ``apply_charges`` on the port's ``System`` equals the JAX one
-on a system with the same bonds and no bond-order or formal-charge column;
-weights carried across from the JAX package's graph equal the port's own.
+on a system with the same bonds and no bond-order or formal-charge column,
+and within 1e-5 on nitrobenzene and acetate with both columns (a System, a
+Sel, indices); weights carried across from the JAX package's graph equal the port's own.
 """
 
 from __future__ import annotations
@@ -232,3 +233,51 @@ def test_weights_carried_across_equal_the_port_s_own(gnn):
     feat, adj = espaloma.featurize(*MOLECULES["corpus0"])
     args = torch.from_numpy(feat), torch.from_numpy(adj)
     assert all(torch.equal(a, b) for a, b in zip(gnn(*args), carried(*args)))
+
+
+def _charged_pair():
+    """Nitrobenzene (an aromatic ring, an N=O double bond, N+ and O-) and
+    acetate (C=O, O-), with bond-order and formal-charge columns ->
+    (JAX System, port System)."""
+    mols = [("NBZ", MOLECULES["nitrobenzene"]), ("ACT", MOLECULES["acetate"])]
+    atoms, bonds, orders, off = [], [], [], 0
+    for resid, (resname, (z, fc, bs)) in enumerate(mols, start=1):
+        atoms += [Atom(name=f"A{k}", resname=resname, resid=resid, atomic_number=int(z[k]),
+                       mass=1.0, formal_charge=int(fc[k])) for k in range(len(z))]
+        bonds += [(i + off, j + off) for i, j, _ in bs]
+        orders += [o for *_, o in bs]
+        off += len(z)
+    top = RefTopology.from_atoms(atoms)
+    top.assign_resindex()
+    top.set_bonds(bonds, orders)
+    coords = np.random.default_rng(4).uniform(0, 3, (off, 3)).astype(np.float32)
+    theirs = molar_tpu.System(top, molar_tpu.core.state.State(coords=coords))
+    mine_top = convert.topology_from_numpy(
+        top.names(), top.resnames(), top.resid, top.resindex, top.chain, top.mass, top.charge,
+        top.occupancy, top.bfactor, top.atomic_number, top.bonds, top.bond_orders,
+        top.formal_charge)
+    return theirs, System(mine_top, State(coords=coords))
+
+
+@pytest.mark.parametrize("what", ["system", "sel", "indices"])
+def test_apply_charges_reads_bond_orders_and_formal_charges(what):
+    theirs, mine = _charged_pair()
+    assert (mine.topology.bond_orders == 2).any() and mine.topology.formal_charge.min() == -1
+    if what == "system":
+        want, got = ref.apply_charges(theirs), mine.apply_charges(device="cpu")
+    elif what == "sel":
+        want = ref.apply_charges(theirs("resname NBZ"))
+        got = espaloma.apply_charges(mine("resname NBZ"), device="cpu")
+    else:
+        want = ref.apply_charges(theirs("resname NBZ"))
+        got = espaloma.apply_charges(mine, mine.select_indices("resname NBZ"), device="cpu")
+    assert got.shape == want.shape and np.abs(got - want).max() <= 1e-5
+    np.testing.assert_allclose(mine.topology.charge, theirs.topology.charge, rtol=0, atol=1e-5)
+    # Read as all-single and neutral (the columns dropped), the charges move.
+    single = espaloma.espaloma_charges(mine.topology.atomic_number[:len(got)],
+                                       np.zeros(len(got), int),
+                                       [(int(a), int(b), 1) for a, b in mine.topology.bonds
+                                        if b < len(got)], device="cpu")
+    assert np.abs(single - got).max() > 1e-3
+    with pytest.raises(ValueError, match="indices"):
+        espaloma.apply_charges(mine("resname ACT"), [0], device="cpu")

@@ -10,9 +10,11 @@ selection language (``selection/*``, the host modules it reads, ``io/gro``,
 ``core/system``) through a ``WindowAnalysisTask`` on a GRO and an XTC, and
 espaloma charges (``ff/*``, ``ops/perception``), trjconv (``io/dcd``,
 ``io/trjconv``) through the function and the ``molar-torch`` CLI, a
-``FrameBatch``, a membrane spec from a TOML with its leaflets, and the
-headline stream sharded over two CPU devices (``parallel/mesh``); a static scan finds no JAX or ``molar_tpu`` import in the port or in
-``chip_smoke.py``.
+``FrameBatch``, a membrane spec from a TOML with its leaflets, the
+headline stream sharded over two CPU devices (``parallel/mesh``), and the
+user API (a PDB through ``System``/``Sel``, their measures, DSSP, SASA,
+the IO facade and NDX, an ``AnalysisTask``); a static scan finds no JAX or
+``molar_tpu`` import in the port or in ``chip_smoke.py``.
 """
 
 import pathlib
@@ -236,11 +238,19 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
                                ["A"] * 12, np.ones(12), np.zeros(12), np.ones(12), np.zeros(12),
                                z, [(i, j) for i, j, _ in bonds])
     bsys = System(btop, State(coords=np.zeros((12, 3), np.float32)))
-    # The port's topology has no bond orders: every bond is single there.
+    # Without a bond-order column every bond counts as single ...
     q1 = espaloma.espaloma_charges(z, np.zeros(12, int), [(i, j, 1) for i, j, _ in bonds],
                                    device="cpu")
     assert np.array_equal(espaloma.apply_charges(bsys, device="cpu"), q1)
     assert np.array_equal(bsys.topology.charge, q1) and np.abs(q1 - q).max() > 1e-3
+    # ... with one, apply_charges reads it, of a System and of a Sel.
+    otop = topology_from_numpy(["C"] * 6 + ["H"] * 6, ["BEN"] * 12, np.ones(12), np.zeros(12),
+                               ["A"] * 12, np.ones(12), np.zeros(12), np.ones(12), np.zeros(12),
+                               z, [(i, j) for i, j, _ in bonds], [o for *_, o in bonds])
+    osys = System(otop, State(coords=np.zeros((12, 3), np.float32)))
+    assert np.array_equal(espaloma.apply_charges(osys, device="cpu"), q)
+    assert np.array_equal(osys.apply_charges(device="cpu"), q)
+    assert np.array_equal(espaloma.apply_charges(osys("all"), device="cpu"), q)
     # trjconv through the function and the CLI, read back; info; a FrameBatch.
     out = io.StringIO()
     with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(out), \\
@@ -262,6 +272,48 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
     assert fb.n_frames == 3 and fb.valid.tolist() == [True, True, False]
     for name in ("cli", "ff.espaloma", "ff.onnx_mini", "ops.perception", "io.dcd",
                  "io.trjconv"):
+        assert "molar_tpu_torch." + name in sys.modules, name
+    # The user API: a PDB through System / Sel, the facade, DSSP, SASA and
+    # an AnalysisTask over the PDB and an XTC.
+    import molar_tpu_torch as mt
+    from molar_tpu_torch.io import FileHandler
+    from molar_tpu_torch.io.ndx import NdxFile
+    from molar_tpu_torch.tasks.trajectory import AnalysisTask
+    sys.path.insert(0, "tests")
+    from torch_structures import scene_pdb
+    with tempfile.TemporaryDirectory() as d:
+        pdb, xtc = os.path.join(d, "conf.pdb"), os.path.join(d, "traj.xtc")
+        open(pdb, "w").write(scene_pdb(seed=1))
+        usys = mt.System.from_file(pdb)
+        ca = usys("protein and name CA")
+        assert isinstance(ca, mt.Sel) and len(ca) == 32 and ca.com().shape == (3,)
+        assert ca.gyration() > 0 and ca.gyration(mt.PBC_FULL) > 0
+        assert "HHHHHHHHHHHHHH" in usys("chain A").dssp() and usys("chain A").dss()
+        near = usys("within 0.5 pbc of resname LIG")
+        assert np.array_equal(near.indices, usys().within_of(
+            0.5, usys("resname LIG"), mt.PBC_FULL).indices) and len(near) > 12
+        assert usys("resname LIG").sasa().total_area() > 0
+        for ext in ("gro", "xyz"):
+            usys.save(os.path.join(d, "a." + ext))
+            assert mt.System.from_file(os.path.join(d, "a." + ext)).n_atoms == usys.n_atoms
+        NdxFile({"ca": ca.indices}).write(os.path.join(d, "i.ndx"))
+        assert NdxFile.read(os.path.join(d, "i.ndx"))["ca"].tolist() == ca.indices.tolist()
+        with FileHandler(xtc, "w") as fh:
+            for k in range(3):
+                usys.state.time = float(k)
+                fh.write(usys.topology, usys.state)
+
+        class Rg(AnalysisTask):
+            def pre_process(self):
+                self.rg = []
+
+            def process_frame(self):
+                self.rg.append(self.src("protein").gyration())
+
+        rg = Rg()
+        assert rg.run(["-f", pdb, xtc, "--log", "0"]).consumed_frames == 3 and len(rg.rg) == 3
+    for name in ("io", "io.base", "io.pdb", "io.xyz", "io.ndx", "ops.dssp", "ops.dss",
+                 "ops.sasa_host", "ops.seq_align"):
         assert "molar_tpu_torch." + name in sys.modules, name
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "molar_tpu")
               and sys.modules[m] is not None]

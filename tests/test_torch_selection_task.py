@@ -23,6 +23,7 @@ from molar_tpu.tasks.trajectory import WindowAnalysisTask as RefTask
 from molar_tpu_torch.core.pbc import PeriodicBox
 from molar_tpu_torch.core.state import State
 from molar_tpu_torch.core.system import System
+from molar_tpu_torch.io.base import EmptyFileError
 from molar_tpu_torch.io.gro import read_gro, write_gro
 from molar_tpu_torch.io.xtc import XtcHandler
 from molar_tpu_torch.selection import FrameSelection, SelectionExpr
@@ -261,9 +262,13 @@ def test_mesh_and_other_structure_formats_are_refused(files, tmp_path):
         assert torch.equal(torch.cat(task.rows), torch.cat(one.rows))
     with pytest.raises(ValueError, match="--mesh"):
         IdsTask().run(["-f", gro, xtc, "--mesh", "-1"], device="cpu")
+    tpr = tmp_path / "x.tpr"
+    tpr.write_text("")
+    with pytest.raises(NotImplementedError, match=r"'tpr' format is not yet ported"):
+        System.from_file(str(tpr))
     pdb = tmp_path / "x.pdb"
     pdb.write_text("END\n")
-    with pytest.raises(NotImplementedError, match=r"\.pdb"):
+    with pytest.raises(EmptyFileError, match="no atoms"):
         System.from_file(str(pdb))
 
 

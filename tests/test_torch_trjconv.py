@@ -172,7 +172,7 @@ def test_dcd_write_bytes_equal_the_reference(xtc_files, tmp_path, kind):
     top = molar_tpu.core.topology.Topology(N_ATOMS)
     with DcdHandler(mine, "w") as w:
         for f in frames:
-            w.write(State(coords=f, box=None if box is None else PeriodicBox(box)), idx)
+            w.write(None, State(coords=f, box=None if box is None else PeriodicBox(box)), idx)
     w2 = RefDcd(theirs, "w")
     for f in frames:
         w2.write(top, RefState(coords=f, box=None if box is None else molar_tpu.PeriodicBox(box)),
@@ -180,7 +180,7 @@ def test_dcd_write_bytes_equal_the_reference(xtc_files, tmp_path, kind):
     w2.close()
     assert open(mine, "rb").read() == open(theirs, "rb").read()
     with DcdHandler(mine) as r, pytest.raises(Exception, match="read-only"):
-        r.write(State(coords=frames[0]))
+        r.write(None, State(coords=frames[0]))
 
 
 def test_dcd_reader_reads_a_file_without_unit_cells(xtc_files, tmp_path):
@@ -250,8 +250,8 @@ def test_cli_trjconv_refuses_an_empty_selection(xtc_files, gro_file, tmp_path, c
 
 
 def test_cli_trjconv_names_an_unported_structure_format(xtc_files, tmp_path):
-    with pytest.raises(NotImplementedError, match="pdb"):
-        cli.main(["trjconv", "-s", str(tmp_path / "conf.pdb"), "-f", xtc_files["cubic"][0],
+    with pytest.raises(NotImplementedError, match="tpr"):
+        cli.main(["trjconv", "-s", str(tmp_path / "conf.tpr"), "-f", xtc_files["cubic"][0],
                   "-o", str(tmp_path / "o.dcd")])
 
 
