@@ -22,7 +22,10 @@ library and a peptide, trjconv writes the protein rows of the
 workloads' file to DCD, through the function and the ``molar-torch`` CLI,
 and the README's first lines (``System`` / ``Sel`` from a PDB, their
 measures, selections, SASA, DSSP and a per-frame ``AnalysisTask``) run on
-the headline system against the card.
+the headline system against the card, and last the rest of the host half:
+TRR and AMBER NetCDF streams, ``molar-torch last``, an SDF through
+perception, GAFF and espaloma, a SAS mesh, and the host membrane beside
+``MembraneDevice(membrane)`` and ``molar-torch membrane``.
 Weights do not exist here but espaloma's, whose model file is in the
 repository; the systems, molecules and trajectories are made from seeds.
 Phases, one line each on stdout (the workloads a line each):
@@ -187,7 +190,7 @@ Phases, one line each on stdout (the workloads a line each):
    card, equal to the unsharded window; the stream through
    ``headline.run(mesh=)`` equal to the main path; a ``WindowAnalysisTask``
    with ``--mesh 2`` equal to one without; the runner's host ms a window;
-19. user API (run last): the README's first lines on the headline system.
+19. user API: the README's first lines on the headline system.
    Its first frame written as ``conf.pdb`` and ``conf.gro`` and read back
    by ``System.from_file`` (every column and the coordinates as each
    format stores them; read and write seconds); ``sys("protein")``'s
@@ -203,7 +206,24 @@ Phases, one line each on stdout (the workloads a line each):
    ``ops.sasa_lr.sasa`` on the card (1e-4 relative; both times);
    ``dssp("gmx")`` and ``dss()`` of an ideal 100-residue alpha-helix built
    by NeRF (``tests/torch_structures.py``): ``H`` on every interior
-   residue.
+   residue;
+20. host half (run last): the headline's first 64 frames written as a TRR
+   and an AMBER NetCDF by the port's writers and streamed, with the XTC's
+   same frames, through phase 13's selection task: the TRR's and the
+   NetCDF's counts and checksums equal the XTC's frame for frame, the
+   NetCDF's coordinates within 1e-6 nm of the XTC's, one ``cell_bins`` and one
+   ``within_ghost`` a within node a window on each stream, fps of each
+   format; ``molar-torch last`` on the TRR (its GRO equal to the GRO
+   writer's of the last frame); phase 14's first 200 ligands through an
+   SDF written and read back (columns equal), ``perceive``,
+   ``apply_ff("gaff")`` and ``("gaff2")`` and espaloma charges on the card
+   from the topologies read back (within 1e-6 of phase 14's); ``Sel.sas_mesh``
+   of 1,000 protein atoms beside ``ops.sasa_lr``'s exact area on the card;
+   ``membrane_dev`` (72 lipids, 64 frames, leaflet groups) through the
+   host ``Membrane``, ``MembraneDevice(membrane)`` on the card (group
+   statistics within ``MEMBRANE_TOL`` of the host's) and ``molar-torch
+   membrane`` (group files equal to the host's byte for byte); the times
+   a ligand and each route's fps.
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: the ghost path must launch only the two ghost kernels,
@@ -212,12 +232,14 @@ never the ghost stencil, the dodecahedron, workloads, sasa, membrane,
 espaloma and trjconv paths none, the selection path the two ghost
 kernels once a ghost-route within node a window, the 1M path the two
 ghost kernels at least once a window, the mesh path once a shard a
-window, and the user-API path each ghost kernel once.
+window, the user-API path each ghost kernel once, and the host-half path
+the two ghost kernels once a within node a window of the TRR and NetCDF
+streams.
 
 Any failure raises, and then the script exits non-zero without its last
 line. The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the per-kernel JSON record (launches on the main path and on the
-selection, 1M, mesh and user-API paths, time, the plain twin's time and
+selection, 1M, mesh, user-API and host-half paths, time, the plain twin's time and
 the bound, each per launch, and the same on the 1M window). The script needs a CUDA
 device and imports no JAX.
 
@@ -279,6 +301,12 @@ STAGES = ("decode", "fit_rmsd", "search", "checksum")
 # device ranges fails the phase (the profiler has been seen to drop every
 # device range of a profiled run).
 PROFILE_TRIES = 3
+# Passes of a window in one profiled trace of ``_workload_window``, the last
+# one read: a trace can lack its first device operations, and a short
+# window (``com_splits``: a dozen operations) has lost every range of two
+# passes in three traces running on an NVIDIA H100 80GB HBM3, so more
+# unread passes go first.
+PROFILE_PASSES = 4
 # The workloads path: benchmarks/workloads.py's defaults (--atoms, --protein,
 # the 8 nm box), 1,024 frames, 3 timed passes a workload, and the window
 # sizes of the sweep.
@@ -1215,11 +1243,10 @@ def _workload_window(model, window, stages):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             # A trace can lack the first device operations after the profiler
             # starts (a dozen, when other profiles ran before in the process):
-            # a pass that is not read goes first.
-            model(*window)
-            torch.cuda.synchronize()
-            model(*window)
-            torch.cuda.synchronize()
+            # passes that are not read go first.
+            for _ in range(PROFILE_PASSES):
+                model(*window)
+                torch.cuda.synchronize()
         if not any(e.device_type == DeviceType.CUDA and e.name == f"stage:{stages[0]}"
                    for e in prof.events()):
             by_stage = {}  # the trace lost the passes' device ranges: profile again
@@ -1231,8 +1258,8 @@ def _workload_window(model, window, stages):
     else:
         raise AssertionError(f"stages of {stages} lack device work in {PROFILE_TRIES} traces: "
                              f"{by_stage}")
-    # Both passes are in the averages: halve them.
-    top = [(k, round(ms / 2, 4)) for k, ms in _device_ops(prof)[:3]]
+    # Every pass is in the sums: divide by their count.
+    top = [(k, round(ms / PROFILE_PASSES, 4)) for k, ms in _device_ops(prof)[:3]]
     return wall_ms, enqueue_ms, by_stage, n_ops, top
 
 
@@ -2661,6 +2688,7 @@ def phase_espaloma(device):
     if bad or any(launches.values()) or not all(np.isfinite(q).all() for q in q_card):
         raise AssertionError(f"espaloma path failed: {bad}, launches {launches}")
     del os.environ["MOLAR_ESPALOMA_BACKEND"]
+    return q_card
 
 
 # ---------------------------------------------------------------- phase 15
@@ -3384,6 +3412,313 @@ def phase_mesh(device, args, workdir, headline_path, ghost, model, window):
     return launches
 
 
+# ---------------------------------------------------------------- phase 20
+
+# The rest of the host half on the card's machine: the headline's first
+# HOST_FRAMES frames as a TRR and an AMBER NetCDF through phase 13's
+# selection task, ``molar-torch last`` on the TRR, phase 14's first
+# HOST_LIGANDS ligands through an SDF, perception, GAFF / GAFF2 and espaloma
+# on the card, a SAS mesh of HOST_MESH_ATOMS protein atoms, and phase 12's
+# ``membrane_dev`` bilayer through the host ``Membrane``,
+# ``MembraneDevice(membrane)`` on the card and ``molar-torch membrane``.
+HOST_FRAMES = 64
+HOST_LIGANDS = 200
+HOST_ESP_TOL = 1e-6
+HOST_MESH_ATOMS = 1000
+HOST_MESH_SPACING = 0.05
+# A sanity bound, not parity: a voxel mesh at 0.05 nm reads a few per cent
+# low against the exact area of scattered spheres.
+HOST_MESH_RTOL = 0.15
+# The NetCDF stores Angstrom in f32: its coordinates come back within a
+# float32 ulp of the XTC's (<= 1e-6 nm in a 10 nm box).
+HOST_NC_COORD_TOL = 1e-6
+HOST_MEMBRANE_SIDE, HOST_MEMBRANE_FRAMES = MEMBRANE_SYSTEMS["membrane_dev"]
+# membrane_dev's options with the leaflet groups of the ``membrane``
+# command; the mid marker is C1, since a structure file's reader gives an
+# atom named G no mass.
+HOST_MEMBRANE_TOML = """
+sel = "all"
+cutoff = 2.0
+order_type = "scdcorr"
+output_dir = "{out}"
+groups = ["upper", "lower"]
+
+[lipids.LIP]
+whole = "resname LIP"
+head = "name P"
+mid = "name C1"
+tails = ["C1-C2-C3-C4"]
+"""
+
+
+def _host_formats(device, workdir, headline_path):
+    """The TRR and NetCDF streams against the XTC's, and ``molar-torch
+    last`` -> (kernel launches on the two streams, fps by format)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from molar_tpu_torch import cli, headline
+    from molar_tpu_torch.io import FileHandler
+    from molar_tpu_torch.io.gro import write_gro
+
+    top = headline.label_topology(ATOMS, PROTEIN)
+    gro = os.path.join(workdir, "host_conf.gro")
+    paths = {"xtc": headline_path, "trr": os.path.join(workdir, "host.trr"),
+             "nc": os.path.join(workdir, "host.nc")}
+    write_s = {}
+    with FileHandler(headline_path) as h:
+        states = [h.read_state() for _ in range(HOST_FRAMES)]
+    write_gro(gro, top, states[0])
+    for ext in ("trr", "nc"):
+        t0 = time.perf_counter()
+        with FileHandler(paths[ext], "w") as w:
+            for st in states:
+                w.write(None, st)
+        write_s[ext] = round(time.perf_counter() - t0, 3)
+    Task = _selection_task()
+    results, fps, launches, windows, win = {}, {}, {}, {}, {}
+    total = dict.fromkeys(KERNELS, 0)
+    for ext in ("xtc", "trr", "nc"):
+        task = Task()
+        _reset_launches()
+        t0 = time.perf_counter()
+        n = task.run(["-f", gro, paths[ext], "-e", str(HOST_FRAMES - 1)], device=device)
+        torch.cuda.synchronize()
+        fps[ext] = n / (time.perf_counter() - t0)
+        launches[ext] = _launches()
+        if ext != "xtc":
+            for k in total:
+                total[k] += launches[ext][k]
+        win[ext] = task.window
+        windows[ext] = -(-HOST_FRAMES // task.window)
+        ghost_nodes = sum(fs.compiled.ghost_nodes for fs in task.sels.values() if fs.compiled)
+        want = ghost_nodes * windows[ext]
+        if (n != HOST_FRAMES or launches[ext]["cell_bins"] != want
+                or launches[ext]["within_ghost"] != want or launches[ext]["within_rows"]):
+            raise AssertionError(f"host half, {ext} stream: {n} frames, launches "
+                                 f"{launches[ext]} for {windows[ext]} windows of {ghost_nodes} "
+                                 "within nodes: expected one cell_bins and one within_ghost a "
+                                 "node a window")
+        if not np.array_equal(task.frame_ids, np.arange(HOST_FRAMES)):
+            raise AssertionError(f"host half, {ext} stream: frames {task.frame_ids[:4]}...")
+        results[ext] = task.results
+    differ = {ext: int((results[ext] != results["xtc"]).any(axis=2).sum())
+              for ext in ("trr", "nc")}
+    with FileHandler(paths["nc"]) as hn:
+        nc_coord_err = max(float(np.abs(hn.read_state().coords - st.coords).max())
+                           for st in states)
+
+    # molar-torch last on the TRR: the last frame, as the GRO writer writes it.
+    out = io.StringIO()
+    last, want_last = os.path.join(workdir, "host_last.gro"), os.path.join(workdir, "want.gro")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["last", "-f", gro, paths["trr"], "-o", last])
+    last_s = time.perf_counter() - t0
+    write_gro(want_last, top, states[-1])
+    last_equal = rc == 0 and open(last, "rb").read() == open(want_last, "rb").read()
+    sizes = {ext: os.path.getsize(p) for ext, p in paths.items() if ext != "xtc"}
+    phase("host_formats", frames=HOST_FRAMES, atoms=ATOMS, write_s=write_s,
+          file_bytes=sizes, window=win, windows=windows,
+          e2e_fps={e: round(v, 3) for e, v in fps.items()},
+          fps_vs_xtc={e: round(fps[e] / fps["xtc"], 3) for e in ("trr", "nc")},
+          launches=launches, frames_differing_from_xtc=differ,
+          nc_coord_max_abs_err_nm=nc_coord_err, last_rc=rc, last_s=round(last_s, 3), last_gro_equal=last_equal,
+          last_stdout=repr(out.getvalue().strip()))
+    if any(differ.values()) or not nc_coord_err <= HOST_NC_COORD_TOL or not last_equal:
+        raise AssertionError(f"host formats: frames whose counts differ from the xtc's "
+                             f"{differ}, nc coords {nc_coord_err}, last equal {last_equal}")
+    return total, fps
+
+
+def _host_ligands(device, q14):
+    """Phase 14's first HOST_LIGANDS ligands through an SDF, perception,
+    GAFF / GAFF2 and espaloma charges on the card from the topologies read
+    back -> the largest charge difference against phase 14's."""
+    import copy
+
+    from molar_tpu_torch.core.system import System
+    from molar_tpu_torch.ff import espaloma
+    from molar_tpu_torch.io.sdf import SdfHandler
+    from molar_tpu_torch.ops.perception import perceive
+
+    from torch_molecules import ligand_corpus, molecule_system
+
+    corpus = ligand_corpus(HOST_LIGANDS)
+    systems = [molecule_system(*m, seed=k) for k, m in enumerate(corpus)]
+    path = os.path.join(tempfile.mkdtemp(prefix="host_sdf_"), "ligands.sdf")
+    s = {}
+    t0 = time.perf_counter()
+    with SdfHandler(path, "w") as w:
+        for m in systems:
+            w.write(m.topology, m.state)
+    s["sdf_write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = []
+    with SdfHandler(path) as r:
+        for _ in systems:
+            back.append(System(*r.read()))
+    s["sdf_read"] = time.perf_counter() - t0
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    bad_columns = 0
+    for m, b in zip(systems, back):
+        mt_, bt = m.topology, b.topology
+        fc = np.zeros(bt.n_atoms, np.int8) if bt.formal_charge is None else bt.formal_charge
+        bad_columns += int(not (np.array_equal(mt_.atomic_number, bt.atomic_number)
+                                and np.array_equal(mt_.bonds, bt.bonds)
+                                and np.array_equal(mt_.bond_orders, bt.bond_orders)
+                                and np.array_equal(mt_.formal_charge, fc)))
+    tops = [copy.deepcopy(b.topology) for b in back]
+    t0 = time.perf_counter()
+    rings = [perceive(t) for t in tops]
+    s["perceive"] = time.perf_counter() - t0
+    n_aromatic = sum(len(p.aromatic_rings()) for p in rings)
+    types = {}
+    for ff in ("gaff", "gaff2"):
+        t0 = time.perf_counter()
+        types[ff] = [b.apply_ff(ff) for b in back]
+        s[ff] = time.perf_counter() - t0
+    espaloma.espaloma_charges(*corpus[0], device=device)
+    t0 = time.perf_counter()
+    q = [espaloma.apply_charges(b, device=device) for b in back]
+    s["espaloma"] = time.perf_counter() - t0
+    err = max(float(np.abs(a - b).max()) for a, b in zip(q, q14[:HOST_LIGANDS]))
+    untyped = sum(not all(lig) for ts in types.values() for lig in ts)
+    phase("host_ligands", ligands=HOST_LIGANDS, atoms=sum(b.n_atoms for b in back),
+          ms_per_ligand={k: round(v * 1e3 / HOST_LIGANDS, 4) for k, v in s.items()},
+          columns_differing=bad_columns, aromatic_rings=n_aromatic,
+          distinct_types={ff: len({t for lig in ts for t in lig}) for ff, ts in types.items()},
+          untyped_ligands=untyped,
+          max_abs_err_q_vs_phase14=err, tol=HOST_ESP_TOL)
+    if bad_columns or untyped or not err <= HOST_ESP_TOL or not n_aromatic:
+        raise AssertionError(f"host ligands: {bad_columns} columns differ, {untyped} untyped, "
+                             f"charges off phase 14's by {err}")
+
+
+def _host_mesh(device, headline_path):
+    """``Sel.sas_mesh`` of HOST_MESH_ATOMS protein atoms beside the exact
+    area of ``ops.sasa_lr`` on the card."""
+    import torch
+
+    import molar_tpu_torch as mt
+    from molar_tpu_torch import headline
+    from molar_tpu_torch.io import FileHandler
+    from molar_tpu_torch.ops import sasa_lr, surface
+
+    with FileHandler(headline_path) as h:
+        system = mt.System(headline.label_topology(ATOMS, PROTEIN), h.read_state())
+    sel = system(f"protein and index < {HOST_MESH_ATOMS}")
+    t0 = time.perf_counter()
+    verts, tris = sel.sas_mesh(spacing=HOST_MESH_SPACING)
+    mesh_s = time.perf_counter() - t0
+    area, volume = surface.mesh_area(verts, tris), surface.mesh_volume(verts, tris)
+    radii = (system.topology.vdw()[sel.indices] + np.float32(0.14)).astype(np.float32)
+    nbr, overflow = sasa_lr.neighbor_lists(sel.coords, radii, cap=USER_SASA_CAP)
+    args_t = [torch.from_numpy(a).to(device) for a in (sel.coords, radii, nbr)]
+    sasa_lr.sasa(*args_t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact = float(sasa_lr.sasa(*args_t).sum())
+    exact_ms = (time.perf_counter() - t0) * 1e3
+    phase("host_mesh", atoms=len(sel), spacing=HOST_MESH_SPACING, vertices=len(verts),
+          triangles=len(tris), mesh_s=round(mesh_s, 3), mesh_area_nm2=area,
+          mesh_volume_nm3=volume, exact_area_nm2=exact, card_exact_ms=round(exact_ms, 3),
+          area_ratio=area / exact, nbr_overflow=bool(overflow))
+    if overflow or not abs(area / exact - 1) <= HOST_MESH_RTOL:
+        raise AssertionError(f"host mesh: area {area} against exact {exact}")
+
+
+def _host_membrane(device, workdir):
+    """membrane_dev through the host Membrane, MembraneDevice(membrane) on
+    the card and ``molar-torch membrane``: the CLI's group files equal the
+    host route's byte for byte, the card's within MEMBRANE_TOL."""
+    import contextlib
+    import io
+
+    import molar_tpu_torch as mt
+    from molar_tpu_torch import cli
+    from molar_tpu_torch import workloads as wl
+    from molar_tpu_torch.convert import topology_from_numpy
+    from molar_tpu_torch.core.pbc import PeriodicBox
+    from molar_tpu_torch.core.state import State
+    from molar_tpu_torch.membrane import Membrane, MembraneDevice, split_leaflets
+    from molar_tpu_torch.tasks.trajectory import TrajectoryReader
+
+    from torch_scenes import membrane_group_diffs
+
+    bilayer = wl.synth_bilayer(HOST_MEMBRANE_SIDE, HOST_MEMBRANE_SIDE)
+    n = len(bilayer.coords)
+    nl = n // 6
+    top = topology_from_numpy(["P", "G", "C1", "C2", "C3", "C4"] * nl, ["LIP"] * n,
+                              np.repeat(np.arange(1, nl + 1), 6), np.repeat(np.arange(nl), 6),
+                              ["A"] * n, np.full(n, 12.0), np.zeros(n), np.ones(n), np.zeros(n),
+                              np.full(n, 6))
+    gro, xtc = os.path.join(workdir, "bilayer.gro"), os.path.join(workdir, "bilayer.xtc")
+    mt.System(top, State(coords=bilayer.coords, box=PeriodicBox(bilayer.box))).save(gro)
+    wl.write_membrane_xtc(bilayer, xtc, HOST_MEMBRANE_FRAMES)
+    outs = {r: os.path.join(workdir, f"membrane_{r}") for r in ("host", "card", "cli")}
+    tomls = {}
+    for route, out in outs.items():
+        tomls[route] = os.path.join(workdir, f"membrane_{route}.toml")
+        with open(tomls[route], "w") as fh:
+            fh.write(HOST_MEMBRANE_TOML.format(out=out))
+
+    system = mt.System.from_file(gro)
+    host = Membrane(system, open(tomls["host"]).read())
+    split_leaflets(host)
+    t0 = time.perf_counter()
+    frames = 0
+    for _, st in TrajectoryReader([xtc]).iter_states():
+        system.set_state(st)
+        host.compute()
+        frames += 1
+    host_fps = frames / (time.perf_counter() - t0)
+    host.finalize()
+
+    csys = mt.System.from_file(gro)
+    card_memb = Membrane(csys, open(tomls["card"]).read())
+    split_leaflets(card_memb)
+    dev = MembraneDevice(card_memb, device=device)
+    card_frames, card_s, _ = wl.run_membrane(dev, xtc)
+    card_memb.finalize()
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["membrane", "-f", gro, xtc, "-p", tomls["cli"], "--log", "0"])
+    cli_s = time.perf_counter() - t0
+    names = sorted(os.listdir(outs["host"]))
+    cli_equal = rc == 0 and names == sorted(os.listdir(outs["cli"])) and all(
+        open(os.path.join(outs["host"], f), "rb").read()
+        == open(os.path.join(outs["cli"], f), "rb").read() for f in names)
+    diffs = membrane_group_diffs(host.groups, card_memb.groups)
+    phase("host_membrane", lipids=nl, frames=frames, host_fps=host_fps,
+          card_fps=card_frames / card_s, card_vs_host=(card_frames / card_s) / host_fps,
+          card_engine=dev.engine_resolved, patch_cap=dev.patch_cap, cli_s=round(cli_s, 3),
+          files=names, cli_files_equal_host=cli_equal,
+          card_vs_host_worst_over_tol=repr({k: round(v, 4) for k, v in diffs.items()}),
+          valid_host_last_frame=sum(lip.valid for lip in host.lipids))
+    if not cli_equal or card_frames != frames or not all(v <= 1.0 for v in diffs.values()):
+        raise AssertionError(f"host membrane: cli equal {cli_equal}, card frames "
+                             f"{card_frames}/{frames}, card vs host {diffs}")
+
+
+def phase_host_half(device, workdir, headline_path, q14):
+    """Phase 20: the rest of the host half on the card's machine. Only the
+    TRR and NetCDF streams launch kernels (the ghost pair, once each a
+    within node a window) -> their launches."""
+    launches, _ = _host_formats(device, workdir, headline_path)
+    _reset_launches()
+    _host_ligands(device, q14)
+    _host_mesh(device, headline_path)
+    _host_membrane(device, workdir)
+    if any(_launches().values()):
+        raise AssertionError(f"host half: kernels launched off the streams: {_launches()}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=256)
@@ -3429,9 +3764,11 @@ def main() -> int:
                                    headline_path, ghost, dodeca)
         launches_mesh = timed("mesh", phase_mesh, device, args, workdir, headline_path, ghost,
                               model, window)
-        timed("espaloma", phase_espaloma, device)
+        q14 = timed("espaloma", phase_espaloma, device)
         timed("trjconv_cli", phase_trjconv_cli, workdir, wl_system, wl_path, wl_meta)
         launches_user_api = timed("user_api", phase_user_api, device, workdir, headline_path)
+        launches_host_half = timed("host_half", phase_host_half, device, workdir, headline_path,
+                                   q14)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     phase("phase_seconds", **seconds)
@@ -3450,6 +3787,7 @@ def main() -> int:
         "launches_selection_path": launches_selection[k],
         "launches_million_path": launches_million[k], "launches_mesh_path": launches_mesh[k],
         "launches_user_api_path": launches_user_api[k],
+        "launches_host_half_path": launches_host_half[k],
         **stats[k], "ms_per_frame": stats[k]["ms"] / stats[k]["frames_per_launch"],
         **{f"million_{kk}": v for kk, v in million.get(k, {}).items()},
     } for k, (src, replaces) in KERNELS.items()]}), flush=True)

@@ -26,9 +26,14 @@ sharded over several devices (``parallel.mesh``: one process, a list of
 devices, behind ``WindowPipeline``, the overflow retry, ``--mesh`` and the
 workloads). And the user API of the host half: ``System`` / ``Sel`` /
 ``Particle`` (``core.system``), the structure and trajectory files behind
-``io.FileHandler`` (PDB, GRO, XYZ, XTC, DCD; NDX groups), every ``Sel``
-measure, DSSP / dss, host SASA and the per-frame ``tasks.trajectory.AnalysisTask``.
-The top-level names are the JAX package's; importing them does no CUDA work.
+``io.FileHandler`` (every format of the JAX package: PDB, GRO, XYZ, XTC,
+TRR, DCD, AMBER NetCDF, SDF / MOL, ITP, TPR / CPT; NDX groups), every
+``Sel`` measure, DSSP / dss, host SASA and the per-frame
+``tasks.trajectory.AnalysisTask``, perception and GAFF typing (``ops.perception``,
+``ff.gaff``), SAS / SES meshes (``ops.surface``), the host membrane
+(``membrane.Membrane``, which ``MembraneDevice`` folds into) and the CLI's
+host subcommands. The top-level names, and each subpackage's ``__all__``,
+are the JAX package's; importing them does no CUDA work.
 
 Units: nm (length), ps (time), amu (mass), e (charge).
 """

@@ -1,6 +1,6 @@
 """Build the port's native pieces from the repository's own sources.
 
-Five artifacts, each built at first use into ``build/molar_tpu_torch/``
+Six artifacts, each built at first use into ``build/molar_tpu_torch/``
 (listed in ``.gitignore``) and rebuilt when a source is newer:
 
 * ``libmolar_kernels.so`` — the CUDA kernels in ``csrc/*.cu``, each source
@@ -18,7 +18,12 @@ Five artifacts, each built at first use into ``build/molar_tpu_torch/``
   JSON line a workload with ``fps`` and ``check``);
 * ``native_membrane`` — ``benchmarks/native_membrane.cpp``: the single-core
   C++ reference of the membrane workload (``native_membrane <sidecar>``,
-  one JSON line with ``fps`` and the three check scalars).
+  one JSON line with ``fps`` and the three check scalars);
+* ``libmolar_gromacs.so`` — ``molar_tpu/native/gromacs_plugin.cpp``, the
+  TPR/CPT shim, compiled by path against a GROMACS source and build tree
+  (``GROMACS_SOURCE_DIR`` / ``GROMACS_BUILD_DIR`` / ``GROMACS_LIB_DIR``);
+  built only on request: ``python -m molar_tpu_torch.build gromacs-plugin
+  [-o OUT]``. Without it ``io.tpr`` reads through its pure decoder.
 
 Every build failure raises :class:`BuildError`. Outputs are written to a
 temporary name and renamed into place, so concurrent builds (test
@@ -31,6 +36,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import sys
 import tempfile
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent
@@ -43,6 +49,9 @@ CODEC_SOURCE = REPO_DIR / "molar_tpu" / "native" / "xtc_codec.cpp"
 BASELINE_SOURCE = REPO_DIR / "benchmarks" / "native_baseline.cpp"
 WORKLOADS_SOURCE = REPO_DIR / "benchmarks" / "native_workloads.cpp"
 MEMBRANE_SOURCE = REPO_DIR / "benchmarks" / "native_membrane.cpp"
+GROMACS_PLUGIN_SOURCE = REPO_DIR / "molar_tpu" / "native" / "gromacs_plugin.cpp"
+#: Where ``io.tpr`` looks for the plugin after ``MOLAR_GROMACS_PLUGIN``.
+GROMACS_PLUGIN = BUILD_DIR / "libmolar_gromacs.so"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -190,3 +199,57 @@ def build_native_membrane() -> pathlib.Path:
     """The single-core C++ reference of the membrane workload
     (``benchmarks/workloads.py``'s ``run_native_membrane``, its flags)."""
     return _build_native("native_membrane", MEMBRANE_SOURCE)
+
+
+def build_gromacs_plugin(output=None, env=None) -> pathlib.Path:
+    """The GROMACS TPR/CPT plugin, compiled against the tree named by
+    ``GROMACS_SOURCE_DIR``, ``GROMACS_BUILD_DIR`` and ``GROMACS_LIB_DIR``
+    (in ``env``, default the process environment), with the include
+    directories of ``molar_tpu/native/build_gromacs_plugin.py``. Always
+    rebuilds; raises :class:`BuildError` when a variable is unset."""
+    env = os.environ if env is None else env
+    src, bld, lib = (env.get(k) for k in
+                     ("GROMACS_SOURCE_DIR", "GROMACS_BUILD_DIR", "GROMACS_LIB_DIR"))
+    if not (src and bld and lib):
+        raise BuildError("set GROMACS_SOURCE_DIR, GROMACS_BUILD_DIR and GROMACS_LIB_DIR")
+    includes = [
+        f"{src}/src",
+        f"{src}/src/gromacs/utility/include",
+        f"{src}/src/gromacs/math/include",
+        f"{src}/src/gromacs/topology/include",
+        f"{src}/api/legacy/include",
+        f"{src}/src/external",
+        f"{bld}/api/legacy/include",
+        f"{bld}/src/include",
+    ]
+    if os.path.isdir(f"{src}/src/external/thread_mpi/include"):
+        includes.append(f"{src}/src/external/thread_mpi/include")
+    out = pathlib.Path(output) if output else GROMACS_PLUGIN
+    _compile(
+        [env.get("CXX", "g++"), "-O2", "-std=c++17", "-shared", "-fPIC"],
+        [GROMACS_PLUGIN_SOURCE], out,
+        [*(f"-I{p}" for p in includes), f"-L{lib}", f"-Wl,-rpath,{lib}", "-lgromacs"],
+    )
+    return out
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="python -m molar_tpu_torch.build",
+                                 description="build one of the port's native pieces")
+    ap.add_argument("what", choices=["gromacs-plugin"])
+    ap.add_argument("-o", "--output", default=None,
+                    help=f"output path (default {GROMACS_PLUGIN})")
+    args = ap.parse_args(argv)
+    try:
+        out = build_gromacs_plugin(args.output)
+    except BuildError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    print(out)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

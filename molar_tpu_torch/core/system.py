@@ -11,8 +11,9 @@ below ~1e6 operations a call numpy beats a launch. The card enters where a
 selection feeds a window: ``sel.indices`` / ``sel.coords`` / ``sel.masses``
 into :class:`~molar_tpu_torch.tasks.trajectory.WindowPipeline`, a selection
 text into :class:`~molar_tpu_torch.selection.FrameSelection`. Ring
-perception, force-field typing and surface meshes belong to modules not yet
-ported and raise :class:`NotImplementedError`.
+perception (:mod:`~molar_tpu_torch.ops.perception`), GAFF typing
+(:mod:`~molar_tpu_torch.ff.gaff`) and surface meshes
+(:mod:`~molar_tpu_torch.ops.surface`) are host work too.
 """
 
 from __future__ import annotations
@@ -330,15 +331,17 @@ class System:
             fh.write(self.topology, self.state)
 
     def perceive(self):
-        """Ring/aromaticity perception (``molar_tpu.ops.perception.perceive``):
-        not yet ported."""
-        raise NotImplementedError("System.perceive needs ops/perception.py's perceive, "
-                                  "not yet ported to molar_tpu_torch")
+        """Ring/aromaticity perception, annotating the topology in place
+        (reference System::perceive / perception.rs)."""
+        from ..ops.perception import perceive as _perceive
+
+        return _perceive(self.topology)
 
     def apply_ff(self, ff: str = "gaff") -> list[str]:
-        """GAFF/GAFF2 typing (``molar_tpu.ff.gaff``): not yet ported."""
-        raise NotImplementedError("System.apply_ff needs ff/gaff.py, not yet ported to "
-                                  "molar_tpu_torch")
+        """GAFF/GAFF2 typing over the whole system (writes type_name)."""
+        from ..ff.gaff import apply_ff as _apply
+
+        return _apply(self, ff)
 
     def apply_charges(self, device=None) -> np.ndarray:
         """espaloma partial charges over the whole system (writes charge);
@@ -886,16 +889,19 @@ class Sel:
         )
 
     def sas_mesh(self, probe: float = 0.14, spacing: float = 0.05):
-        """Solvent-accessible surface mesh (``molar_tpu.ops.surface``): not
-        yet ported."""
-        raise NotImplementedError("Sel.sas_mesh needs ops/surface.py, not yet ported to "
-                                  "molar_tpu_torch")
+        """Solvent-accessible surface triangle mesh (verts, tris); the
+        reference exposes SAS meshes from powersasa (sasa.rs:14-122)."""
+        from ..ops.surface import sas_mesh as _sas_mesh
+
+        return _sas_mesh(self.state.coords[self.indices], self.topology.vdw()[self.indices],
+                         probe=probe, spacing=spacing)
 
     def ses_mesh(self, probe: float = 0.14, spacing: float = 0.05):
-        """Solvent-excluded surface mesh (``molar_tpu.ops.surface``): not yet
-        ported."""
-        raise NotImplementedError("Sel.ses_mesh needs ops/surface.py, not yet ported to "
-                                  "molar_tpu_torch")
+        """Solvent-excluded (molecular) surface triangle mesh (verts, tris)."""
+        from ..ops.surface import ses_mesh as _ses_mesh
+
+        return _ses_mesh(self.state.coords[self.indices], self.topology.vdw()[self.indices],
+                         probe=probe, spacing=spacing)
 
     # -- secondary structure -------------------------------------------------------
 

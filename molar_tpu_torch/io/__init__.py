@@ -1,17 +1,18 @@
 """IO facade: extension-dispatched file handlers.
 
 The port of ``molar_tpu.io``'s ``FileHandler`` (reference:
-molar/src/io.rs:279-782): one entry point that opens a supported format by
-extension (``pdb|ent``, ``gro``, ``xyz``, ``xtc``, ``dcd``), reads
-topology/state/both, writes, seeks, and iterates over trajectory frames.
+molar/src/io.rs:279-782): one entry point that opens any supported format
+by extension (``pdb|ent``, ``gro``, ``xyz``, ``xtc``, ``trr``, ``dcd``,
+``sdf|sd|mol``, ``itp``, ``nc|ncdf``, ``tpr``, ``cpt``; the reference's
+alias table, io.rs:339-377), reads topology/state/both, writes, seeks, and
+iterates over trajectory frames.
 Iteration prefetches: a reader thread decodes ahead of the consumer through
 a bounded queue (the reference's ``IoStateIterator``, io.rs:198-271); the
 windowed prefetch pipeline lives in :mod:`molar_tpu_torch.tasks.trajectory`
 (``WindowPipeline``). Every handler is imported eagerly and no import or
 codec-build error is swallowed (the JAX package's lazy registration drops
-a handler whose import fails). Any other extension, among them the JAX
-package's trr, sdf, itp, netcdf, tpr and cpt, raises
-:class:`FormatNotPortedError`.
+a handler whose import fails). Any other extension raises
+:class:`FileIoError`.
 """
 
 from __future__ import annotations
@@ -34,18 +35,28 @@ from .base import (
 )
 from .dcd import DcdHandler
 from .gro import GroHandler
+from .itp import ItpHandler
+from .netcdf_amber import NetcdfHandler
 from .pdb import PdbHandler
+from .sdf import SdfHandler
+from .tpr import CptHandler, TprHandler
+from .trr import TrrHandler
 from .xtc import Frame, XtcHandler
 from .xyz import XyzHandler
 
 __all__ = [
+    "CptHandler",
     "DcdHandler",
     "FileHandler",
     "Frame",
-    "FormatNotPortedError",
     "handler_factory",
     "GroHandler",
+    "ItpHandler",
+    "NetcdfHandler",
     "PdbHandler",
+    "SdfHandler",
+    "TprHandler",
+    "TrrHandler",
     "XtcHandler",
     "XyzHandler",
     "open_file",
@@ -64,10 +75,6 @@ __all__ = [
 
 _REGISTRY: dict[str, Callable[[str, str], FormatHandler]] = {}
 
-class FormatNotPortedError(FileIoError, NotImplementedError):
-    """An extension with no handler in the port (the JAX package's other
-    formats are not yet ported)."""
-
 
 def register_format(extensions: str, factory: Callable[[str, str], FormatHandler]) -> None:
     """Register a handler factory for '|'-separated extensions."""
@@ -79,18 +86,22 @@ register_format("pdb|ent", PdbHandler)
 register_format("gro", GroHandler)
 register_format("xyz", XyzHandler)
 register_format("xtc", XtcHandler)
+register_format("trr", TrrHandler)
 register_format("dcd", DcdHandler)
+register_format("sdf|sd|mol", SdfHandler)
+register_format("itp", ItpHandler)
+register_format("nc|ncdf", NetcdfHandler)
+register_format("tpr", TprHandler)
+register_format("cpt", CptHandler)
 
 
 def handler_factory(path: str) -> Callable[[str, str], FormatHandler]:
     """The registered handler factory for ``path``'s extension; raises
-    :class:`FormatNotPortedError` for any other."""
+    :class:`FileIoError` for any other."""
     ext = os.path.splitext(path)[1].lstrip(".").lower()
     factory = _REGISTRY.get(ext)
     if factory is None:
-        raise FormatNotPortedError(
-            f"the {ext!r} format is not yet ported to molar_tpu_torch ({path}); it reads "
-            f"{', '.join(sorted(_REGISTRY))}")
+        raise FileIoError(f"unsupported file extension: {ext!r} ({path})")
     return factory
 
 

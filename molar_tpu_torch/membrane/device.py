@@ -49,7 +49,7 @@ from ..core.pbc import PeriodicBox
 from ..ops.measure import contiguous_segments_dense
 from ..tasks.trajectory import decode_window_coords
 from .spec import MembraneSpec
-from .stats import LipidGroup, MembraneError, _RunningStats, _tilt_deg
+from .stats import LipidGroup, MembraneError, _RunningStats, _tilt_deg, merge_groups
 
 _VORO_TOL = 1e-6  # f32 analogue of the host clip's 1e-10 (f64)
 _VORO_BOUND = 10.0
@@ -667,6 +667,14 @@ class MembraneDevice:
     statistics of the spec's ``groups`` (``groups[name]``, a
     :class:`LipidGroup`) folded in by :meth:`accumulate`.
 
+    ``MembraneDevice(membrane, patch_cap=..., engine=..., device=...)``
+    takes a host :class:`~molar_tpu_torch.membrane.membrane.Membrane`
+    instead (as the JAX package's ``MembraneDevice(membrane)``): the spec is
+    :meth:`MembraneSpec.from_membrane`, the build frame the membrane's
+    system, and :meth:`accumulate` folds into ``membrane.groups``, so
+    ``membrane.finalize()`` writes the group files. Build it after the
+    membrane's groups are set.
+
     ``build_coords`` (n_atoms, 3) and ``build_box`` (3, 3) are the build
     frame (global rows): they size ``patch_cap`` when it is None (1.25x the
     build frame's largest patch, rounded up to 8) and give every frame the
@@ -680,8 +688,18 @@ class MembraneDevice:
     choice.
     """
 
-    def __init__(self, spec: MembraneSpec, build_coords, build_box, patch_cap=None,
+    def __init__(self, spec, build_coords=None, build_box=None, patch_cap=None,
                  engine: str = "device", device=None):
+        membrane = None
+        if not isinstance(spec, MembraneSpec):  # a host Membrane
+            membrane = spec
+            if build_coords is not None or build_box is not None:
+                raise MembraneError("MembraneDevice(membrane): the build frame is the "
+                                    "membrane's own; pass patch_cap, engine and device "
+                                    "by keyword")
+            spec = MembraneSpec.from_membrane(membrane)
+            build_coords = membrane.system.state.coords
+            build_box = membrane.system.state.require_box().matrix
         opt = spec.options
         if opt.n_shells_patch > 0:
             raise MembraneError(
@@ -703,7 +721,8 @@ class MembraneDevice:
         self._sp_lipids = spec.sp_lipids
         self._triclinic = spec.triclinic
         self.build_box = np.asarray(build_box, np.float64)
-        self.groups = {
+        self.membrane = membrane
+        self.groups = membrane.groups if membrane is not None else {
             name: LipidGroup(name, ids, {spec.species_names[spec.species_of[i]] for i in ids})
             for name, ids in spec.groups.items()
         }
@@ -824,23 +843,7 @@ class MembraneDevice:
         through its own :class:`MembraneDevice`, and the per-group Welford
         accumulators merge afterwards, exactly up to float rounding and in
         any order. Groups and species must match."""
-        if set(self.groups) != set(other.groups):
-            raise MembraneError("cannot merge: group names differ")
-        for name, gr in self.groups.items():
-            ogr = other.groups[name]
-            if gr.species_names != ogr.species_names:
-                raise MembraneError(f"cannot merge group {name!r}: species differ")
-            for sp in gr.species_names:
-                st, ost = gr.per_species[sp], ogr.per_species[sp]
-                for key in ("count", "area", "tilt", "mean_curv", "gauss_curv", "n_neighbors"):
-                    st[key].merge(ost[key])
-                for s, acc in ost["neib_fractions"].items():
-                    st["neib_fractions"][s].merge(acc)
-                if ost["order"] is not None:
-                    if st["order"] is None:
-                        st["order"] = [_RunningStats(o.mean.shape) for o in ost["order"]]
-                    for mine, theirs in zip(st["order"], ost["order"]):
-                        mine.merge(theirs)
+        merge_groups(self.groups, other.groups)
 
     def _group_update(self, gr: LipidGroup, fr, outs, valid, tilt):
         in_group = np.zeros(self.n_lipids + 1, bool)

@@ -1,12 +1,13 @@
-"""What the membrane pipeline folds its results into, on the host.
+"""What the membrane pipelines fold their results into, on the host.
 
 Jax-free copies of ``molar_tpu.membrane.membrane``'s options and group
 statistics (the port never imports ``molar_tpu``): :class:`MembraneOptions`
 with the same defaults and TOML keys, the Welford accumulator
 :class:`_RunningStats`, :class:`LipidGroup` with the same statistics and
-the same output files, and the tilt angle of ``membrane/device.py``.
-``LipidGroup.frame_update`` works on the host pipeline's lipid objects and
-is not copied: ``MembraneDevice.accumulate`` takes its place.
+the same output files, and the tilt angle of ``membrane/device.py``. The
+host :class:`~.membrane.Membrane` folds a frame in with
+``LipidGroup.frame_update``; ``MembraneDevice.accumulate`` folds a window
+of the device pipeline into the same groups.
 """
 
 from __future__ import annotations
@@ -117,6 +118,59 @@ class LipidGroup:
             for sp in self.species_names
         }
 
+    def frame_update(self, lipids) -> None:
+        """Fold one frame of the host pipeline in: ``lipids`` are the host
+        ``Membrane``'s ``LipidMolecule`` objects, indexed by lipid id."""
+        by_species: dict[str, list] = {s: [] for s in self.species_names}
+        in_group = set(self.lipid_ids)
+        for lid in self.lipid_ids:
+            lip = lipids[lid]
+            if lip.valid:
+                by_species[lip.species.name].append(lip)
+        for sp, lips in by_species.items():
+            st = self.per_species[sp]
+            st["count"].add(len(lips))
+            if not lips:
+                continue
+            st["area"].add(np.mean([l.area for l in lips]))
+            tilts = []
+            for l in lips:
+                cosang = np.clip(
+                    l.normal
+                    @ l.tail_head_vec
+                    / (np.linalg.norm(l.normal) * np.linalg.norm(l.tail_head_vec)),
+                    -1,
+                    1,
+                )
+                tilts.append(np.degrees(np.arccos(cosang)))
+            st["tilt"].add(np.mean(tilts))
+            st["mean_curv"].add(np.mean([l.mean_curv for l in lips]))
+            st["gauss_curv"].add(np.mean([l.gaussian_curv for l in lips]))
+            st["n_neighbors"].add(np.mean([len(l.neib_ids) for l in lips]))
+            # neighbor species fractions
+            fracs = {s: 0.0 for s in self.species_names}
+            total = 0
+            for l in lips:
+                for nid in l.neib_ids:
+                    if nid in in_group:
+                        fracs[lipids[nid].species.name] = (
+                            fracs.get(lipids[nid].species.name, 0.0) + 1
+                        )
+                        total += 1
+            if total:
+                for s in self.species_names:
+                    st["neib_fractions"][s].add(fracs.get(s, 0.0) / total)
+            # order profiles averaged per tail position
+            if lips[0].order:
+                if st["order"] is None:
+                    st["order"] = [
+                        _RunningStats(o.shape) for o in lips[0].order
+                    ]
+                for k in range(len(lips[0].order)):
+                    st["order"][k].add(
+                        np.mean([l.order[k] for l in lips], axis=0)
+                    )
+
     def save(self, outdir: str) -> None:
         os.makedirs(outdir, exist_ok=True)
         path = os.path.join(outdir, f"stats_{self.name}.dat")
@@ -146,6 +200,29 @@ class LipidGroup:
                     fh.write(f"# tail {k}\n")
                     for i, (m, s) in enumerate(zip(acc.mean, acc.std)):
                         fh.write(f"{i + 2} {m:.4f} {s:.4f}\n")
+
+
+def merge_groups(groups: dict, others: dict) -> None:
+    """Fold the group statistics ``others`` (name -> :class:`LipidGroup`)
+    into ``groups`` (Chan et al. per accumulator): exact up to float
+    rounding and in any order. Groups and species must match."""
+    if set(groups) != set(others):
+        raise MembraneError("cannot merge: group names differ")
+    for name, gr in groups.items():
+        ogr = others[name]
+        if gr.species_names != ogr.species_names:
+            raise MembraneError(f"cannot merge group {name!r}: species differ")
+        for sp in gr.species_names:
+            st, ost = gr.per_species[sp], ogr.per_species[sp]
+            for key in ("count", "area", "tilt", "mean_curv", "gauss_curv", "n_neighbors"):
+                st[key].merge(ost[key])
+            for s, acc in ost["neib_fractions"].items():
+                st["neib_fractions"][s].merge(acc)
+            if ost["order"] is not None:
+                if st["order"] is None:
+                    st["order"] = [_RunningStats(o.mean.shape) for o in ost["order"]]
+                for mine, theirs in zip(st["order"], ost["order"]):
+                    mine.merge(theirs)
 
 
 def _tilt_deg(normals, thv):

@@ -1,0 +1,3 @@
+from . import measure_host, neighbor_host
+
+__all__ = ["measure_host", "neighbor_host"]

@@ -1,19 +1,42 @@
-"""Ring perception from the connection table: the smallest set of smallest
-rings (SSSR).
+"""Molecular perception from the connection table: SSSR rings, aromaticity,
+valence / implicit hydrogens.
 
-The port's own copy of the part of ``molar_tpu.ops.perception`` that
-espaloma's featurisation reads (numpy only): the smallest ring through every
-bond (BFS shortest cycle avoiding the closing edge, candidates in ascending
-bond order for stable ties) plus GF(2) linear independence over the edge
-set, stopping at the cyclomatic number (reference: molar/src/perception.rs).
-Aromaticity perception of a topology and GAFF typing are not ported.
+The port's own copy of ``molar_tpu.ops.perception`` (numpy only;
+``ff/espaloma.py`` reads its :func:`sssr` / :func:`sssr_rings`). Semantics
+parity with the reference (molar/src/perception.rs):
+
+* SSSR = smallest ring through every bond (BFS shortest cycle avoiding the
+  closing edge, candidates in ascending bond order for stable ties) + GF(2)
+  linear independence over the edge set, stopping at the cyclomatic number;
+* ring aromaticity: 5-6 rings only; trust all-Aromatic input bonds; else
+  Hueckel over sp2 ring atoms — C needs a ring double bond (exocyclic double
+  or sp3 C breaks it), N contributes 1 (pyridine) or 2 (pyrrole), O/S lone
+  pair 2 (a double bond on O/S breaks it); pi in {2, 6, 10};
+* ``perceive`` writes in place: Aromatic order on aromatic-ring bonds,
+  IN_RING/AROMATIC atom flags; returns rings + net formal charge;
+* implicit H = round(target_valence(z, formal charge) - sum bond valences),
+  aromatic bond valence 1.0 for 5-ring N and O/S, 1.5 otherwise.
 """
 
 from __future__ import annotations
 
 from collections import deque
+from dataclasses import dataclass
 
 import numpy as np
+
+from ..core.atom import AROMATIC, IN_RING, BondOrder
+from ..core.topology import Topology
+
+
+@dataclass
+class Perception:
+    rings: list[list[int]]
+    aromatic: list[bool]
+    total_charge: float
+
+    def aromatic_rings(self) -> list[list[int]]:
+        return [r for r, a in zip(self.rings, self.aromatic) if a]
 
 
 class _Graph:
@@ -122,3 +145,142 @@ def sssr(n_atoms: int, bonds: np.ndarray) -> list[tuple[list[int], list[int]]]:
 
 def sssr_rings(n_atoms: int, bonds: np.ndarray) -> list[list[int]]:
     return [atoms for atoms, _ in sssr(n_atoms, bonds)]
+
+
+def _ring_is_aromatic(atoms, ring_bonds, g: _Graph, orders, z, in_ring) -> bool:
+    sz = len(atoms)
+    if not 5 <= sz <= 6:
+        return False
+    if all(orders[bi] == BondOrder.AROMATIC for bi in ring_bonds):
+        return True
+    pi = 0
+    for a in atoms:
+        ring_double = False
+        for nb, bi in g.adj[a]:
+            if orders[bi] == BondOrder.DOUBLE:
+                if in_ring[nb]:
+                    ring_double = True
+                else:
+                    return False  # exocyclic double bond
+        za = int(z[a])
+        if za == 6:
+            if ring_double:
+                pi += 1
+            else:
+                return False  # sp3 carbon
+        elif za == 7:
+            pi += 1 if ring_double else 2
+        elif za in (8, 16):
+            if ring_double:
+                return False
+            pi += 2
+        else:
+            return False
+    return pi in (2, 6, 10)
+
+
+def rings_with_aromaticity(n_atoms, bonds, orders, z):
+    rings = sssr(n_atoms, bonds)
+    g = _Graph(n_atoms, bonds)
+    in_ring = np.zeros(n_atoms, dtype=bool)
+    for atoms, _ in rings:
+        in_ring[atoms] = True
+    aromatic = [
+        _ring_is_aromatic(atoms, rb, g, orders, z, in_ring) for atoms, rb in rings
+    ]
+    return rings, aromatic
+
+
+def perceive(top: Topology) -> Perception:
+    """Perceive rings + aromaticity, annotating the topology in place
+    (Aromatic bond orders + IN_RING/AROMATIC flags). Destructive of Kekule
+    structure; idempotent."""
+    n = top.n_atoms
+    total_charge = (
+        float(top.formal_charge.sum()) if top.formal_charge is not None else 0.0
+    )
+    orders = (
+        list(top.bond_orders)
+        if top.bond_orders is not None
+        else [BondOrder.UNSPECIFIED] * top.n_bonds
+    )
+    orders = [BondOrder(int(o)) for o in orders]
+    rings, aromatic = rings_with_aromaticity(n, top.bonds, orders, top.atomic_number)
+
+    flags = top.ensure_flags()
+    new_orders = np.array([int(o) for o in orders], dtype=np.uint8)
+    for atoms, _ in rings:
+        flags[atoms] |= IN_RING
+    for (atoms, ring_bonds), is_arom in zip(rings, aromatic):
+        if is_arom:
+            for bi in ring_bonds:
+                new_orders[bi] = int(BondOrder.AROMATIC)
+            flags[atoms] |= AROMATIC
+    top.set_bond_orders(new_orders)
+    return Perception(
+        rings=[atoms for atoms, _ in rings], aromatic=aromatic, total_charge=total_charge
+    )
+
+
+# ---------------------------------------------------------------------------
+# Valence / implicit hydrogens
+# ---------------------------------------------------------------------------
+
+_BASE_VALENCE = {1: 1, 5: 3, 6: 4, 7: 3, 8: 2, 9: 1, 17: 1, 35: 1, 53: 1, 15: 3, 16: 2}
+
+
+def target_valence(z: int, fc: int) -> int:
+    base = _BASE_VALENCE.get(z, 0)
+    if base == 0:
+        return 0
+    if z == 6:
+        return max(base - abs(fc), 0)
+    if z in (7, 15, 8, 16):
+        return base + fc
+    return max(base + fc, 0)
+
+
+def _bond_valence(order: BondOrder, z: int, ring_size: int) -> float:
+    if order in (BondOrder.SINGLE, BondOrder.UNSPECIFIED):
+        return 1.0
+    if order == BondOrder.DOUBLE:
+        return 2.0
+    if order == BondOrder.TRIPLE:
+        return 3.0
+    # aromatic
+    if z == 7 and ring_size == 5:
+        return 1.0
+    if z in (8, 16):
+        return 1.0
+    return 1.5
+
+
+def implicit_hydrogens(top: Topology) -> np.ndarray:
+    """Per-atom implicit H counts (perception.rs implicit_hydrogens)."""
+    n = top.n_atoms
+    g = _Graph(n, top.bonds)
+    orders = (
+        [BondOrder(int(o)) for o in top.bond_orders]
+        if top.bond_orders is not None
+        else [BondOrder.UNSPECIFIED] * top.n_bonds
+    )
+    fc = (
+        top.formal_charge if top.formal_charge is not None else np.zeros(n, np.int8)
+    )
+    ring_size = np.zeros(n, dtype=np.int64)
+    if any(o == BondOrder.AROMATIC for o in orders):
+        for atoms, _ in sssr(n, top.bonds):
+            sz = len(atoms)
+            for a in atoms:
+                if ring_size[a] == 0 or sz < ring_size[a]:
+                    ring_size[a] = sz
+    out = np.zeros(n, dtype=np.uint8)
+    z = top.atomic_number
+    for i in range(n):
+        explicit = sum(
+            _bond_valence(orders[bi], int(z[i]), int(ring_size[i]))
+            for _, bi in g.adj[i]
+        )
+        target = target_valence(int(z[i]), int(fc[i]))
+        out[i] = max(round(target - explicit), 0)
+    return out

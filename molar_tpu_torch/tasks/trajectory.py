@@ -9,7 +9,8 @@ The torch counterpart of ``molar_tpu.tasks.trajectory``'s device half:
 three wire forms (plain f32, raw i16 quantized ints, i8 frame-to-frame
 deltas); :func:`decode_window_coords` expands them on the device,
 bit-identical to the host float decode. Any other format the IO facade
-reads (PDB, GRO, XYZ, DCD) goes through serial state reads in plain f32.
+reads (TRR, AMBER NetCDF, DCD, PDB, GRO, XYZ, ...) goes through serial state
+reads in plain f32.
 The tunnel-only chunked forms of ``molar_tpu`` are not ported.
 
 :class:`WindowAnalysisTask` is the user-facing harness on top: the standard
@@ -122,8 +123,8 @@ class TrajectoryReader:
     runner does: frames after it are never read, even where a later file's
     times restart below the end time. ``begin`` is a filter, frame by
     frame. Each path is any format :class:`~molar_tpu_torch.io.FileHandler`
-    reads; another raises here (``FormatNotPortedError``, a
-    ``NotImplementedError``, for a format not yet ported)."""
+    reads; an unknown extension raises :class:`~molar_tpu_torch.io.FileIoError`
+    here."""
 
     def __init__(
         self,
@@ -371,17 +372,15 @@ def auto_window(
     rounded down to a multiple of 16 and clamped to ``max_window``; below
     16 (huge frames) it falls in powers of two, but not below
     :data:`AUTO_WINDOW_MIN` (the JAX package goes down to 1: on the H100 a
-    shorter window starves the decode pool). Never longer than the file,
-    where the format knows its frame count up front (XTC, DCD); another
-    format's first frame gives the row count."""
+    shorter window starves the decode pool). Never longer than the file.
+    Only an XTC is sized: any other format gets 16 frames without being
+    opened, as in the JAX package; an extension no handler reads raises."""
     if requested:
         return requested
-    with FileHandler(str(path)) as fh:
-        h = fh.handler
-        if hasattr(h, "n_frames"):
-            n_frames, n_atoms = h.n_frames, h.n_atoms
-        else:
-            n_frames, n_atoms = max_window, fh.read_state().n_atoms
+    if handler_factory(str(path)) is not XtcHandler:
+        return 16
+    with XtcHandler(str(path)) as h:
+        n_frames, n_atoms = h.n_frames, h.n_atoms
     rows = n_atoms if subset is None else len(subset)
     w = target_bytes // max(1, WIRE_BYTES[WIRE] * rows)
     if w < 16:

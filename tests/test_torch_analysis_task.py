@@ -7,7 +7,8 @@ port. The same task, with zero-argument pymolar hooks and with
 in both packages under ``-b/-e/--skip/--add-time``: the hook order, the
 state ``pre_process`` sees (frame 1's), the frames' times and coordinates
 must be equal. ``TrajectoryReader.iter_states`` and ``iter_windows`` over a
-multi-model PDB and a DCD (serial reads) give the JAX reader's frames, and
+multi-model PDB, a DCD, a TRR and a NetCDF (serial reads) give the JAX
+reader's frames, and
 a ``WindowAnalysisTask`` reads its structure from a PDB.
 """
 
@@ -55,13 +56,18 @@ def files(tmp_path_factory):
                 fh.write(system.topology, st)
     with mio.FileHandler(str(d / "a.xtc")) as src, \
             mio.FileHandler(str(d / "multi.pdb"), "w") as pdb, \
-            mio.FileHandler(str(d / "a.dcd"), "w") as dcd:
+            mio.FileHandler(str(d / "a.dcd"), "w") as dcd, \
+            mio.FileHandler(str(d / "a.trr"), "w") as trr, \
+            mio.FileHandler(str(d / "a.nc"), "w") as nc:
         for st in src:
             pdb.write(system.topology, st)
             dcd.write(None, st)
+            trr.write(None, st)
+            nc.write(None, st)
     return {k: str(d / v) for k, v in (("gro", "conf.gro"), ("pdb", "conf.pdb"),
                                        ("a", "a.xtc"), ("b", "b.xtc"),
-                                       ("multi", "multi.pdb"), ("dcd", "a.dcd"))}
+                                       ("multi", "multi.pdb"), ("dcd", "a.dcd"),
+                                       ("trr", "a.trr"), ("nc", "a.nc"))}
 
 
 def _pymolar_task(base):
@@ -145,6 +151,8 @@ READERS = {
     "dcd_skip": (["dcd"], {"skip": 2}),
     "mixed_begin_end": (["multi", "dcd", "a"], {"begin": 4, "end": 14, "skip": 3}),
     "pdb_then_xtc": (["pdb", "b"], {"begin": 1}),
+    "trr_nc_xtc_skip": (["trr", "nc", "b"], {"skip": 2}),
+    "trr_begin_end": (["trr"], {"begin": 1, "end": 4}),
 }
 
 
@@ -205,12 +213,27 @@ def test_window_task_reads_a_pdb_structure(files):
     with mio.FileHandler(files["multi"]) as fh:
         want = [st.coords[task.subset].mean(0) for st in fh]
     np.testing.assert_allclose(task.cogs, want, rtol=1e-6)
-    assert ttraj.auto_window(files["multi"], task.subset) == ttraj.AUTO_WINDOW_MAX
-    assert ttraj.auto_window(files["dcd"]) == N1
+    # Only an XTC is sized; any other file gets the JAX package's 16 frames.
+    for name, subset in (("multi", task.subset), ("dcd", None)):
+        assert ttraj.auto_window(files[name], subset) == jtraj.auto_window(files[name], subset)
+        assert ttraj.auto_window(files[name], subset) == 16
 
 
 def test_unported_trajectory_formats_are_refused(files, tmp_path):
-    with pytest.raises(NotImplementedError, match="'trr' format is not yet ported"):
-        ttraj.TrajectoryReader([files["a"], str(tmp_path / "x.trr")])
-    with pytest.raises(NotImplementedError):
-        ttraj.AnalysisTask().run(["-f", files["gro"], str(tmp_path / "x.nc")])
+    """Every format of the JAX package is read now; an extension neither
+    package knows is refused when the reader is made, as the JAX facade
+    refuses it, and a TRR and a NetCDF of ``a.xtc``'s frames run the task
+    as the XTC does (the NetCDF's Angstrom within 1e-6 nm)."""
+    with pytest.raises(mio.FileIoError, match="unsupported file extension: 'abc'"):
+        ttraj.TrajectoryReader([files["a"], str(tmp_path / "x.abc")])
+    want = _pymolar_task(ttraj.AnalysisTask)
+    want.run(["-f", files["gro"], files["a"]])
+    for key in ("trr", "nc"):
+        got = _pymolar_task(ttraj.AnalysisTask)
+        got.run(["-f", files["gro"], files[key]])
+        ref = _pymolar_task(jtraj.AnalysisTask)
+        ref.run(["-f", files["gro"], files[key]])
+        assert got.log == ref.log
+        assert [e[:2] + e[3:] for e in got.log[1:-1]] == [e[:2] + e[3:] for e in want.log[1:-1]]
+        np.testing.assert_allclose([e[2] for e in got.log[1:-1]],
+                                   [e[2] for e in want.log[1:-1]], rtol=0, atol=1e-6)

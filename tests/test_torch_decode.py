@@ -164,8 +164,27 @@ def test_invert_boxes_matches_reference():
 
 
 def test_non_xtc_trajectory_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError):
-        ttraj.TrajectoryReader([str(tmp_path / "x.trr")])
+    """A TRR is read now: its windows (plain f32, read state by state) are
+    the JAX reader's; an extension neither package reads is refused."""
+    from molar_tpu_torch.core.pbc import PeriodicBox
+    from molar_tpu_torch.core.state import State
+    from molar_tpu_torch.io.base import FileIoError
+    from molar_tpu_torch.io.trr import TrrHandler
+
+    path = str(tmp_path / "x.trr")
+    rng = np.random.default_rng(4)
+    with TrrHandler(path, "w") as w:
+        for k in range(6):
+            w.write(None, State(coords=rng.uniform(0, 3, (40, 3)).astype(np.float32),
+                                box=PeriodicBox(np.diag([3.0, 3.1, 3.2])), time=2.0 * k, step=k))
+    got = list(ttraj.TrajectoryReader([path], skip=2).iter_windows(2, subset=np.arange(5, 30)))
+    want = list(jtraj.TrajectoryReader([path], skip=2).iter_windows(2, subset=np.arange(5, 30)))
+    assert len(got) == len(want) == 2
+    for a, b in zip(want, got):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(y, x)
+    with pytest.raises(FileIoError, match="unsupported file extension"):
+        ttraj.TrajectoryReader([str(tmp_path / "x.abc")])
 
 
 def test_decode_forms_exact_int_math():

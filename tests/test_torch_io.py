@@ -5,8 +5,8 @@ Each handler round-trips, and the files the port's PDB, GRO, XYZ and NDX
 writers produce are byte-equal to the JAX package's for the same topology
 and state (all atoms and by indices; a box or none; GRO velocities and a
 triclinic box). Multi-model PDB, CONECT records after a TER, the element
-column, the empty-file and unknown-extension errors and the formats not yet
-ported are covered. On an XTC and a DCD, ``FileHandler``'s iteration
+column, the empty-file and unknown-extension errors (an empty TRR and TPR
+among them) are covered. On an XTC and a DCD, ``FileHandler``'s iteration
 (prefetching and synchronous), seeks and skips give the JAX facade's
 states.
 """
@@ -172,8 +172,11 @@ ERRORS = {
     "empty_xtc": ("e.xtc", "", EmptyFileError),
     "empty_dcd": ("e.dcd", "", EmptyFileError),
     "unknown": ("x.abc", "1\n", FileIoError),
-    "not_ported_tpr": ("x.tpr", "", NotImplementedError),
-    "not_ported_trr": ("x.trr", "", mio.FormatNotPortedError),
+    # (the ids of the two formats the port once refused: now the errors the
+    # JAX package raises for them; an empty tpr is no tpx file and there
+    # is no GROMACS plugin)
+    "not_ported_tpr": ("x.tpr", "", mio.tpr.GromacsPluginError),
+    "not_ported_trr": ("x.trr", "", EmptyFileError),
     "bad_gro_count": ("b.gro", "t\nabc\n", mio.MalformedFileError),
     "bad_xyz_line": ("b.xyz", "2\n\nC 0 0\n", mio.MalformedFileError),
 }
@@ -186,11 +189,11 @@ def test_errors_are_the_reference_s(tmp_path, case):
     path.write_text(text)
     with pytest.raises(err):
         mt.System.from_file(str(path))
-    if case.startswith("not_ported"):
-        with pytest.raises(err, match="not yet ported"):
+    if case.startswith("unknown"):
+        with pytest.raises(err, match="unsupported file extension: 'abc'"):
             mio.FileHandler(str(path))
-    elif not case.startswith("unknown"):
-        ref_err = getattr(ref_io, err.__name__)
+    else:
+        ref_err = getattr(ref_io, err.__name__, None) or getattr(ref_io.tpr, err.__name__)
         with pytest.raises(ref_err):
             molar_tpu.System.from_file(str(path))
 

@@ -13,8 +13,11 @@ espaloma charges (``ff/*``, ``ops/perception``), trjconv (``io/dcd``,
 ``FrameBatch``, a membrane spec from a TOML with its leaflets, the
 headline stream sharded over two CPU devices (``parallel/mesh``), and the
 user API (a PDB through ``System``/``Sel``, their measures, DSSP, SASA,
-the IO facade and NDX, an ``AnalysisTask``); a static scan finds no JAX or
-``molar_tpu`` import in the port or in ``chip_smoke.py``.
+the IO facade and NDX, an ``AnalysisTask``), and the rest of the host half
+(a TRR, a NetCDF and an SDF, ``perceive``, ``apply_ff``, a mesh, a TPR, a
+host ``Membrane`` frame with ``MembraneDevice(membrane)``, ``molar-torch
+last``); a static scan finds no JAX or ``molar_tpu`` import in the port or
+in ``chip_smoke.py``.
 """
 
 import pathlib
@@ -147,7 +150,7 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
     from molar_tpu_torch.convert import topology_from_numpy
     from molar_tpu_torch.core.state import State
     from molar_tpu_torch.core.system import System
-    from molar_tpu_torch.membrane import MembraneSpec, leaflets
+    from molar_tpu_torch.membrane import Membrane, MembraneSpec, split_leaflets
     nl = b.spec.n_lipids
     ltop = topology_from_numpy(["P", "G", "C1", "C2", "C3", "C4"] * nl, ["LIP"] * 6 * nl,
                                np.repeat(np.arange(1, nl + 1), 6), np.repeat(np.arange(nl), 6),
@@ -160,7 +163,7 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
     assert all(np.array_equal(getattr(tspec, f), getattr(b.spec, f))
                for f in ("subset", "first", "atom_first", "masses", "species_of"))
     assert tspec.groups == b.spec.groups
-    up, down = leaflets(tspec, b.coords, PeriodicBox(b.box))
+    up, down = split_leaflets(Membrane(lsys, toml))
     assert up == list(range(nl // 2)) and down == list(range(nl // 2, nl))
     # Frames sharded over two CPU "devices": the headline stream again.
     from molar_tpu_torch.parallel import MeshWindowRunner, com_gyration_sharded, frame_mesh
@@ -314,6 +317,44 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
         assert rg.run(["-f", pdb, xtc, "--log", "0"]).consumed_frames == 3 and len(rg.rg) == 3
     for name in ("io", "io.base", "io.pdb", "io.xyz", "io.ndx", "ops.dssp", "ops.dss",
                  "ops.sasa_host", "ops.seq_align"):
+        assert "molar_tpu_torch." + name in sys.modules, name
+    # The rest of the host half: a TRR, a NetCDF and an SDF written and read
+    # back, perception and GAFF typing, a mesh, a TPR from the pure decoder, a
+    # host Membrane frame folded by MembraneDevice(membrane), molar-torch last.
+    from molar_tpu_torch.membrane import Membrane, MembraneDevice
+    from torch_molecules import ligand_corpus, molecule_system
+    import torch_gromacs
+    with tempfile.TemporaryDirectory() as d:
+        for ext in ("trr", "nc"):
+            with FileHandler(os.path.join(d, "t." + ext), "w") as fh:
+                for k in range(3):
+                    usys.state.time = float(k)
+                    fh.write(usys.topology, usys.state)
+            with FileHandler(os.path.join(d, "t." + ext)) as fh:
+                assert len(list(fh)) == 3
+        lig = molecule_system(*ligand_corpus(1, seed=2)[0])
+        lig.save(os.path.join(d, "l.sdf"))
+        back = mt.System.from_file(os.path.join(d, "l.sdf"))
+        assert len(back.apply_ff("gaff2")) == back.n_atoms and back.perceive().rings
+        verts, tris = back("all").sas_mesh(spacing=0.1)
+        assert len(tris) > 0
+        n, _ = torch_gromacs.molecule_counts(2)
+        torch_gromacs.write_tpx(os.path.join(d, "t.tpr"), np.ones((n, 3)), None,
+                                np.diag([3.0] * 3), 2)
+        assert mt.System.from_file(os.path.join(d, "t.tpr")).n_atoms == n
+        usys.save(os.path.join(d, "s.pdb"))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+            assert cli.main(["last", "-f", os.path.join(d, "s.pdb"), os.path.join(d, "t.trr"), "-o",
+                             os.path.join(d, "last.gro")]) == 0
+        assert "wrote last frame (t=2.0)" in out.getvalue()
+        memb = Membrane(lsys, toml)
+        memb.compute()
+        dev = MembraneDevice(memb, engine="cpu")
+        dev.accumulate(dev.compute_window(lsys.state.coords[None, dev.subset]))
+        assert memb.groups["all"].per_species["LIP"]["area"].n == 2
+    for name in ("io.trr", "io.netcdf_amber", "io.sdf", "io.tpr", "io.tpx", "ff.gaff",
+                 "ops.surface", "ops.voronoi", "membrane.membrane"):
         assert "molar_tpu_torch." + name in sys.modules, name
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "molar_tpu")
               and sys.modules[m] is not None]

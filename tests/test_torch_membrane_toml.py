@@ -1,4 +1,4 @@
-"""A membrane from a user's TOML: ``MembraneSpec.from_toml`` and ``leaflets``.
+"""A membrane from a user's TOML: ``MembraneSpec.from_toml`` and ``split_leaflets``.
 
 On each scene of ``tests/test_torch_membrane.py`` (``make_bilayer`` with
 that scene's TOML), the port's spec built from the TOML on the port's own
@@ -8,9 +8,9 @@ the masses and the species' tails exactly, the options and the groups (a
 named group starts empty, no ``groups`` gives "all" every lipid). The
 reference's errors come with its messages: no lipid matched (a species
 whose ``whole`` matches nothing or does not parse is skipped), a tail
-string without its first or its last carbon. The leaflet split equals the
-JAX ``membrane`` command's (``molar_tpu/cli.py:256-266``) on two-leaflet
-bilayers. One window through a ``MembraneDevice`` built from the TOML
+string without its first or its last carbon. The port's leaflet split
+(``split_leaflets`` of the port's ``Membrane``) equals the JAX ``membrane``
+command's (``molar_tpu/cli.py:256-266``) on two-leaflet bilayers. One window through a ``MembraneDevice`` built from the TOML
 equals the JAX ``MembraneDevice``'s within ``tests/torch_scenes``'s
 ``MEMBRANE_BARS``, and its check scalars are within ``MEMBRANE_TOL``.
 """
@@ -32,7 +32,8 @@ from molar_tpu_torch import workloads as wl
 from molar_tpu_torch.core.pbc import PeriodicBox
 from molar_tpu_torch.core.state import State
 from molar_tpu_torch.core.system import System
-from molar_tpu_torch.membrane import MembraneDevice, MembraneError, MembraneSpec, leaflets
+from molar_tpu_torch.membrane import (Membrane as PortMembrane, MembraneDevice, MembraneError,
+                                      MembraneSpec, split_leaflets)
 
 from test_membrane_device import TOML, make_bilayer
 from test_torch_membrane import SCENES, _system
@@ -166,16 +167,16 @@ def _reference_leaflets(system, text):
 def test_leaflets_equal_the_reference_split(kw):
     system = make_bilayer(**kw)
     text = _text(TWO_LEAFLETS)
-    spec = MembraneSpec.from_toml(port_system(system), text)
     # shift the bilayer across the box's z edge so lipids wrap
     coords = system.state.coords.copy()
     coords[:, 2] += 4.5
     system.state.coords = coords
-    port = port_system(system)
-    upper, lower = leaflets(spec, port.state.coords, port.state.box)
+    memb = PortMembrane(port_system(system), text)
+    upper, lower = split_leaflets(memb)
     want = _reference_leaflets(system, text)
     assert (upper, lower) == want
-    assert len(upper) == len(lower) == spec.n_lipids // 2
+    assert len(upper) == len(lower) == len(memb.lipids) // 2
+    assert memb.groups["upper"].lipid_ids == upper and memb.groups["lower"].lipid_ids == lower
 
 
 def test_one_window_from_toml_equals_the_jax_device():
@@ -183,7 +184,7 @@ def test_one_window_from_toml_equals_the_jax_device():
     text = _text(TWO_LEAFLETS)
     port_sys = port_system(system)
     spec = MembraneSpec.from_toml(port_sys, text)
-    upper, lower = leaflets(spec, port_sys.state.coords, port_sys.state.box)
+    upper, lower = split_leaflets(PortMembrane(port_system(system), text))
     spec.groups.update(upper=upper, lower=lower)
     dev = MembraneDevice(spec, port_sys.state.coords, port_sys.state.box.matrix, device="cpu")
 

@@ -23,12 +23,13 @@ from molar_tpu.tasks.trajectory import WindowAnalysisTask as RefTask
 from molar_tpu_torch.core.pbc import PeriodicBox
 from molar_tpu_torch.core.state import State
 from molar_tpu_torch.core.system import System
-from molar_tpu_torch.io.base import EmptyFileError
+from molar_tpu_torch.io.base import EmptyFileError, FileIoError
 from molar_tpu_torch.io.gro import read_gro, write_gro
 from molar_tpu_torch.io.xtc import XtcHandler
 from molar_tpu_torch.selection import FrameSelection, SelectionExpr
 from molar_tpu_torch.tasks.trajectory import FrameSpec, WindowAnalysisTask
 
+import torch_gromacs
 from test_torch_selection import _pdb_system, frames, port_topology
 
 N_FRAMES, WINDOW = 8, 4
@@ -262,10 +263,20 @@ def test_mesh_and_other_structure_formats_are_refused(files, tmp_path):
         assert torch.equal(torch.cat(task.rows), torch.cat(one.rows))
     with pytest.raises(ValueError, match="--mesh"):
         IdsTask().run(["-f", gro, xtc, "--mesh", "-1"], device="cpu")
+    # A tpr is read now: an empty one is no tpx file, and there is no
+    # GROMACS plugin (the JAX package's error); a tpx file is a structure.
     tpr = tmp_path / "x.tpr"
     tpr.write_text("")
-    with pytest.raises(NotImplementedError, match=r"'tpr' format is not yet ported"):
+    with pytest.raises(FileIoError, match="GROMACS plugin not found"):
         System.from_file(str(tpr))
+    n, _ = torch_gromacs.molecule_counts(2)
+    torch_gromacs.write_tpx(str(tpr), np.full((n, 3), 1.0), None, np.diag([3.0] * 3), 2)
+    task = FirstRowTask()
+    with XtcHandler(str(tmp_path / "t.xtc"), "w") as w:
+        w.write_raw(np.full((n, 3), 1.5, np.float32), np.diag([3.0] * 3).astype(np.float32))
+    assert task.run(["-f", str(tpr), str(tmp_path / "t.xtc")], device="cpu") == 1
+    with XtcHandler(str(tmp_path / "t.xtc")) as h:
+        assert task.rows[0].tolist() == [h.read_frame(0).coords[0].tolist()]
     pdb = tmp_path / "x.pdb"
     pdb.write_text("END\n")
     with pytest.raises(EmptyFileError, match="no atoms"):

@@ -511,12 +511,23 @@ def test_to_system_and_ndx_equal_the_reference(pair):
 
 
 def test_unported_chemistry_names_its_module(pair):
-    _, mine = pair
-    for call, module in ((mine.perceive, "perception"), (mine.apply_ff, "gaff"),
-                         (mine("protein").sas_mesh, "surface"),
-                         (mine("protein").ses_mesh, "surface")):
-        with pytest.raises(NotImplementedError, match=module):
-            call()
+    """The chemistry of ``ops/perception``, ``ff/gaff`` and ``ops/surface``
+    is ported: on the scene, perception, GAFF typing of the ligands and
+    their meshes equal the reference's (meshes within 1e-9 nm)."""
+    ref, mine = pair
+    want, got = ref.perceive(), mine.perceive()
+    assert got.rings == want.rings and got.aromatic == want.aromatic
+    same_topology(ref.topology, mine.topology)
+    from molar_tpu.ff import apply_ff as ref_apply_ff
+    from molar_tpu_torch.ff import apply_ff
+
+    types = apply_ff(mine("resname LIG"))
+    assert types == ref_apply_ff(ref("resname LIG")) and len(types) > 0
+    for kind in ("sas_mesh", "ses_mesh"):
+        v, t = getattr(mine("resname LIG"), kind)(spacing=0.08)
+        rv, rt = getattr(ref("resname LIG"), kind)(spacing=0.08)
+        np.testing.assert_allclose(v, rv, rtol=0, atol=1e-9)
+        np.testing.assert_array_equal(t, rt)
 
 
 def test_top_level_names_are_the_reference_s():
@@ -524,6 +535,19 @@ def test_top_level_names_are_the_reference_s():
     public = {n for n in ref if not n.startswith("_") and n not in ("config", "core", "selection",
                                                                      "utils", "io", "ops")}
     missing = [n for n in public if not hasattr(mt, n)]
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("package", ["core", "ff", "io", "membrane", "ops", "selection",
+                                     "tasks"])
+def test_subpackage_names_are_the_reference_s(package):
+    """Every name a subpackage of the JAX package exports (its ``__all__``)
+    is exported by the port's subpackage of the same name."""
+    import importlib
+
+    ref = importlib.import_module(f"molar_tpu.{package}")
+    mine = importlib.import_module(f"molar_tpu_torch.{package}")
+    missing = [n for n in ref.__all__ if not hasattr(mine, n) or n not in mine.__all__]
     assert not missing, missing
 
 

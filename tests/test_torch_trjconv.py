@@ -250,9 +250,27 @@ def test_cli_trjconv_refuses_an_empty_selection(xtc_files, gro_file, tmp_path, c
 
 
 def test_cli_trjconv_names_an_unported_structure_format(xtc_files, tmp_path):
-    with pytest.raises(NotImplementedError, match="tpr"):
-        cli.main(["trjconv", "-s", str(tmp_path / "conf.tpr"), "-f", xtc_files["cubic"][0],
-                  "-o", str(tmp_path / "o.dcd")])
+    """A tpr structure is read now: a missing one raises the JAX CLI's error
+    (no GROMACS plugin, no file for the decoder), and a tpx file's
+    selection converts byte for byte as the JAX CLI converts it."""
+    from molar_tpu.io.tpr import GromacsPluginError as RefPluginError
+    from molar_tpu_torch.io.tpr import GromacsPluginError
+
+    import torch_gromacs
+
+    tpr = str(tmp_path / "conf.tpr")
+    argv = ["trjconv", "-s", tpr, "-f", xtc_files["cubic"][0]]
+    with pytest.raises(GromacsPluginError, match="GROMACS plugin not found"):
+        cli.main(argv + ["-o", str(tmp_path / "o.dcd")])
+    with pytest.raises(RefPluginError, match="GROMACS plugin not found"):
+        ref_cli.main(argv + ["-o", str(tmp_path / "o.dcd")])
+    n, _ = torch_gromacs.molecule_counts(198)
+    assert n < N_ATOMS
+    torch_gromacs.write_tpx(tpr, np.ones((n, 3)), None, np.diag([SIDE] * 3), 198)
+    select = ["--select", "resname SOL and name OW"]
+    assert cli.main(argv + ["-o", str(tmp_path / "a.dcd")] + select) == 0
+    assert ref_cli.main(argv + ["-o", str(tmp_path / "b.dcd")] + select) == 0
+    assert (tmp_path / "a.dcd").read_bytes() == (tmp_path / "b.dcd").read_bytes()
 
 
 def test_cli_info_without_a_card_exits_1(monkeypatch, capsys):

@@ -27,7 +27,6 @@ from molar_tpu.tasks import trajectory as jtraj
 
 from molar_tpu_torch import convert
 from molar_tpu_torch import workloads as wl
-from molar_tpu_torch.io.base import MalformedFileError
 from molar_tpu_torch.tasks import trajectory as traj
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "benchmarks"))
@@ -280,13 +279,35 @@ def test_auto_window_rounding_rules(case, rows, target, max_window, want, want_j
 
 
 def test_auto_window_raises_on_what_is_not_an_xtc(tmp_path):
-    with pytest.raises(NotImplementedError, match="'trr' format is not yet ported"):
-        traj.auto_window(str(tmp_path / "frames.trr"))
-    other = tmp_path / "frames.dcd"
-    other.write_bytes(b"CORD")
-    with pytest.raises(MalformedFileError, match="not a dcd file"):
-        traj.auto_window(str(other))
+    """Only an XTC is sized, as in the JAX package: a TRR of the XTC's
+    frames, an empty TRR and a file that is not a DCD get its 16 frames,
+    none of them opened. A missing XTC raises (the JAX package takes 16 for
+    it too: its ``except Exception``), and so does an extension no handler
+    reads."""
+    from molar_tpu_torch.io.base import FileIoError
+    from molar_tpu_torch.io.trr import TrrHandler
+    from molar_tpu_torch.io.xtc import XtcHandler
+
+    xtc, trr = str(tmp_path / "f.xtc"), str(tmp_path / "f.trr")
+    rng = np.random.default_rng(0)
+    box = np.diag([3.0] * 3).astype(np.float32)
+    with XtcHandler(xtc, "w") as w:
+        for k in range(40):
+            w.write_raw(rng.uniform(0, 3, (50, 3)).astype(np.float32), box, step=k, time=k)
+    with XtcHandler(xtc) as r, TrrHandler(trr, "w") as w:
+        for k in range(40):
+            w.write(None, r.read_state())
+    (tmp_path / "empty.trr").write_bytes(b"")
+    (tmp_path / "frames.dcd").write_bytes(b"CORD")
+    for target, rows, sized in ((6 * 50 * 40, None, 32), (6 * 20 * 9, np.arange(20), 8)):
+        assert traj.auto_window(xtc, rows, target_bytes=target) == sized
+        for path in (trr, str(tmp_path / "empty.trr"), str(tmp_path / "frames.dcd")):
+            assert traj.auto_window(path, rows, target_bytes=target) == 16
+            assert jtraj.auto_window(path, rows, target_bytes=target) == 16
     with pytest.raises(Exception) as err:
         traj.auto_window(str(tmp_path / "missing.xtc"))
     assert not isinstance(err.value, NotImplementedError)
+    assert jtraj.auto_window(str(tmp_path / "missing.xtc")) == 16
+    with pytest.raises(FileIoError, match="unsupported file extension"):
+        traj.auto_window(str(tmp_path / "frames.abc"))
     assert traj.AUTO_WINDOW_MAX % 16 == 0 and traj.AUTO_WINDOW_TARGET_BYTES > 0

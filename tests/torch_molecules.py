@@ -198,3 +198,24 @@ def peptide(n_res: int):
         prev_c = base + 2
     m.bonds.append((prev_c, m.add([8]), 1))
     return m.finish()
+
+
+def molecule_system(z, fc, bonds, seed: int = 0):
+    """A port ``System`` of one molecule ``(z, fc, bonds)``: atoms named by
+    their element, residue ``MOL`` 1, bond orders and formal charges set,
+    coordinates drawn from ``default_rng(seed)`` in a 1 nm cube (a file
+    format and the typing read the connection table only)."""
+    from molar_tpu_torch.convert import topology_from_numpy
+    from molar_tpu_torch.core import periodic_table as pt
+    from molar_tpu_torch.core.state import State
+    from molar_tpu_torch.core.system import System
+
+    z = np.asarray(z)
+    n = len(z)
+    top = topology_from_numpy(
+        [pt.element_symbol(int(v)) for v in z], ["MOL"] * n, np.ones(n), np.zeros(n),
+        ["A"] * n, pt.ELEMENT_MASSES[z], np.zeros(n), np.zeros(n), np.zeros(n), z,
+        [(i, j) for i, j, _ in bonds], [o for *_, o in bonds],
+        formal_charge=np.zeros(n, np.int8) if fc is None else np.asarray(fc))
+    coords = np.random.default_rng(seed).uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    return System(top, State(coords=coords))

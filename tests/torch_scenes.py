@@ -320,3 +320,30 @@ def selection_scene(kind: str = "box", n_frames: int = 4, seed: int = 0):
         raise KeyError(kind)
     invs = np.linalg.inv(boxes.astype(np.float64)).astype(np.float32)
     return top, coords.astype(np.float32), boxes, invs
+
+
+def membrane_group_diffs(want: dict, got: dict) -> dict:
+    """Two membranes' group statistics (name -> ``LipidGroup``) -> for each
+    key of ``workloads.MEMBRANE_TOL`` the worst ``|got - want| / (atol + rtol
+    |want|)`` over every group and species (at most 1 within it): the mean
+    area (``check_area``), mean curvature (``check_mean``) and order
+    parameter (``check_order``, every tail and carbon)."""
+    from molar_tpu_torch.workloads import MEMBRANE_TOL
+
+    worst = dict.fromkeys(MEMBRANE_TOL, 0.0)
+    assert set(want) == set(got)
+    for name, gr in want.items():
+        assert gr.species_names == got[name].species_names
+        for sp in gr.species_names:
+            a, b = gr.per_species[sp], got[name].per_species[sp]
+            pairs = {"check_area": [(a["area"].mean, b["area"].mean)],
+                     "check_mean": [(a["mean_curv"].mean, b["mean_curv"].mean)],
+                     "check_order": [(x.mean, y.mean) for x, y in
+                                     zip(a["order"] or [], b["order"] or [])]}
+            for key, vals in pairs.items():
+                rtol, atol = MEMBRANE_TOL[key]
+                for w, g in vals:
+                    w, g = np.asarray(w, np.float64), np.asarray(g, np.float64)
+                    r = float((np.abs(g - w) / (atol + rtol * np.abs(w))).max(initial=0.0))
+                    worst[key] = max(worst[key], r)
+    return worst
