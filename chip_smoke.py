@@ -21,11 +21,13 @@ trajectory, written with a structure file, espaloma charges a ligand
 library and a peptide, trjconv writes the protein rows of the
 workloads' file to DCD, through the function and the ``molar-torch`` CLI,
 and the README's first lines (``System`` / ``Sel`` from a PDB, their
-measures, selections, SASA, DSSP and a per-frame ``AnalysisTask``) run on
-the headline system against the card, and last the rest of the host half:
-TRR and AMBER NetCDF streams, ``molar-torch last``, an SDF through
-perception, GAFF and espaloma, a SAS mesh, and the host membrane beside
-``MembraneDevice(membrane)`` and ``molar-torch membrane``.
+measures, selections, searches, SASA, DSSP and a per-frame
+``AnalysisTask``) run on the headline system through a ``System`` on the
+card against one on the CPU, and last the rest of the host half: TRR and
+AMBER NetCDF streams, ``molar-torch last``, an SDF through perception, GAFF
+and espaloma, a SAS mesh, the host membrane beside
+``MembraneDevice(membrane)`` and ``molar-torch membrane`` and ``solvate`` on
+both routes, and the examples.
 Weights do not exist here but espaloma's, whose model file is in the
 repository; the systems, molecules and trajectories are made from seeds.
 Phases, one line each on stdout (the workloads a line each):
@@ -190,23 +192,26 @@ Phases, one line each on stdout (the workloads a line each):
    card, equal to the unsharded window; the stream through
    ``headline.run(mesh=)`` equal to the main path; a ``WindowAnalysisTask``
    with ``--mesh 2`` equal to one without; the runner's host ms a window;
-19. user API: the README's first lines on the headline system.
-   Its first frame written as ``conf.pdb`` and ``conf.gro`` and read back
-   by ``System.from_file`` (every column and the coordinates as each
-   format stores them; read and write seconds); ``sys("protein")``'s
-   ``com`` / ``cog`` / ``gyration`` / ``inertia`` with and without
-   ``PBC_FULL`` against ``ops.measure`` on the card (1e-5 relative);
-   ``sys("within 0.5 pbc of protein")`` (host evaluator) and
-   ``Sel.within_of`` equal to the ``FrameSelection`` device tier's mask on
-   the card (one ``cell_bins`` and one ``within_ghost`` launch); the
-   per-frame RMSD of the protein through ``AnalysisTask`` (host
-   ``Sel.fit`` + ``rmsd_mw``) over ``conf.pdb`` and the headline XTC
-   against a ``WindowPipeline`` fitting on the card (1e-5 nm; both fps);
-   ``Sel.sasa`` of the protein's first 1,000 atoms against
-   ``ops.sasa_lr.sasa`` on the card (1e-4 relative; both times);
-   ``dssp("gmx")`` and ``dss()`` of an ideal 100-residue alpha-helix built
-   by NeRF (``tests/torch_structures.py``): ``H`` on every interior
-   residue;
+19. user API: the README's first lines on the headline system, through
+   the user API on a ``System`` on the card (``device`` None) held against a
+   ``System(..., device="cpu")`` of the same file (the host's numpy
+   functions). Its first frame written as ``conf.pdb`` and ``conf.gro`` and
+   read back by ``System.from_file`` (every column and the coordinates as
+   each format stores them; read and write seconds); ``sys("protein")``'s
+   measures with and without ``PBC_FULL`` (1e-6 relative, a rotation's
+   entries 1e-6); then the per-call table: ``com``, ``gyration``,
+   ``fit_transform`` and ``rmsd_mw`` (against the second frame),
+   ``within_of`` the protein, ``select("index .. and within 0.5 pbc of
+   protein")`` and ``distance_search`` against the protein on the first 100,
+   5,000 and 100,000 atoms, and ``sasa`` of 100 and 1,000 atoms: the card's
+   and the CPU's wall ms a call, the answers equal (sets and pair lists) or
+   within the bars, each ``within`` launching ``cell_bins`` and
+   ``within_ghost`` and never ``within_rows``; the voxel volume of 100
+   atoms; the per-frame fit + ``rmsd_mw`` of the protein through
+   ``AnalysisTask`` over ``conf.pdb`` and the headline XTC on each route
+   (1e-5 nm; both fps); ``dssp("gmx")`` and ``dss()`` of an ideal
+   100-residue alpha-helix built by NeRF (``tests/torch_structures.py``):
+   ``H`` on every interior residue;
 20. host half (run last): the headline's first 64 frames written as a TRR
    and an AMBER NetCDF by the port's writers and streamed, with the XTC's
    same frames, through phase 13's selection task: the TRR's and the
@@ -222,8 +227,13 @@ Phases, one line each on stdout (the workloads a line each):
    ``membrane_dev`` (72 lipids, 64 frames, leaflet groups) through the
    host ``Membrane``, ``MembraneDevice(membrane)`` on the card (group
    statistics within ``MEMBRANE_TOL`` of the host's) and ``molar-torch
-   membrane`` (group files equal to the host's byte for byte); the times
-   a ligand and each route's fps.
+   membrane`` on the card (its files within ``MEMBRANE_TOL`` of the host's,
+   its ``--vmd`` drawing byte-equal to the host's) and with ``--device
+   cpu`` (byte-equal to the host's); ``molar-torch
+   solvate`` of the headline's protein in a tiled 216-water box on both
+   routes (the same file); the times a ligand and each route's fps and
+   seconds; last the six examples of ``molar_tpu_torch/examples`` on the
+   card on generated inputs.
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: the ghost path must launch only the two ghost kernels,
@@ -232,9 +242,10 @@ never the ghost stencil, the dodecahedron, workloads, sasa, membrane,
 espaloma and trjconv paths none, the selection path the two ghost
 kernels once a ghost-route within node a window, the 1M path the two
 ghost kernels at least once a window, the mesh path once a shard a
-window, the user-API path each ghost kernel once, and the host-half path
-the two ghost kernels once a within node a window of the TRR and NetCDF
-streams.
+window, the user-API path each ghost kernel at least once for every
+``within_of`` and ``within`` text it times (never the row kernel), and the
+host-half path the two ghost kernels once a within node a window of the
+TRR and NetCDF streams and once a window of the contacts example.
 
 Any failure raises, and then the script exits non-zero without its last
 line. The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -2788,15 +2799,28 @@ def phase_trjconv_cli(workdir, system, path, meta):
 
 # ---------------------------------------------------------------- phase 19
 
-# The user-API path: the README's first lines on the headline system. The
-# SASA slice (the protein's first rows), the helix's length, and the bars:
-# measures on the card within 1e-5 relative, AnalysisTask's RMSD within
-# 1e-5 nm of the card window's, Sel.sasa within 1e-4 relative of ops.sasa_lr.
-USER_SASA_ATOMS = 1000
+# The user-API path: the README's first lines on the headline system, through
+# a System on the card against a System on the CPU (device="cpu") from the
+# same file. The per-call table's selection sizes (the first n atoms: n =
+# 100 and 5,000 are protein rows, 100,000 every atom), SASA's sizes, the card
+# calls a point (median, after one warm-up call) and the host calls (median
+# of three; one call of a search at 100,000 atoms or of SASA at 1,000, ~4-10
+# s each), the helix's
+# length, and the bars: measures within 1e-6 relative (float64 on both
+# sides), a rotation's entries within 1e-6, RMSD within 1e-5 nm, within sets
+# and pair sets equal, distances within 1e-6 nm, SASA within 2e-5 nm^2 an
+# atom, the volume's voxel count the host's (1e-12 relative).
+USER_SIZES = (100, 5_000, 100_000)
+USER_SASA_SIZES = (100, 1_000)
+USER_CARD_REPEATS = 3
+USER_HOST_REPEATS = 3
 USER_HELIX_RESIDUES = 100
-USER_MEASURE_RTOL = 1e-5
+USER_MEASURE_RTOL = 1e-6
+USER_ROTATION_ATOL = 1e-6
 USER_RMSD_ATOL = 1e-5
-USER_SASA_RTOL = 1e-4
+USER_DIST_ATOL = 1e-6
+USER_SASA_ATOL = 2e-5
+USER_VOLUME_RTOL = 1e-12
 USER_SASA_CAP = 256
 
 
@@ -2826,128 +2850,164 @@ def _columns_as_written(ext, written, back):
     return bad
 
 
+def _launched(fn):
+    """``fn()`` -> (its result, the kernel launches it made)."""
+    before = _launches()
+    out = fn()
+    return out, {k: v - before[k] for k, v in _launches().items()}
+
+
+def _median_s(fn, reps: int):
+    """``fn()`` ``reps`` times -> (the last result, the median seconds)."""
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return out, float(np.median(times))
+
+
+def _user_diff(kind: str, card, host) -> float:
+    """The card's answer against the CPU System's, as a ratio to its bar (at
+    most 1 within it; a set or pair list that differs is inf)."""
+    if kind == "set":
+        return 0.0 if np.array_equal(card.indices, host.indices) else float("inf")
+    if kind == "pairs":  # both routes return the list sorted by (i, j)
+        if not np.array_equal(card[0], host[0]):
+            return float("inf")
+        return float(np.abs(card[1] - host[1]).max(initial=0.0)) / USER_DIST_ATOL
+    if kind == "rmsd":
+        return abs(card - host) / USER_RMSD_ATOL
+    if kind == "fit":
+        return max(float(np.abs(card[0] - host[0]).max()) / USER_ROTATION_ATOL,
+                   _rel(card[1], host[1]) / USER_MEASURE_RTOL)
+    if kind == "sasa":
+        return float(np.abs(card.areas() - host.areas()).max()) / USER_SASA_ATOL
+    return _rel(card, host) / USER_MEASURE_RTOL
+
+
 def phase_user_api(device, workdir, headline_path):
-    """Phase 19: ``System`` / ``Sel`` and the structure files on the
-    headline system, their answers held against the card's."""
+    """Phase 19: ``System`` / ``Sel`` and the structure files on the headline
+    system, every computing call through a System on the card held against
+    a System on the CPU from the same file -> the path's kernel launches."""
     import torch
 
     import molar_tpu_torch as mt
     from molar_tpu_torch import headline
     from molar_tpu_torch.io import FileHandler
-    from molar_tpu_torch.ops import measure, sasa_lr
-    from molar_tpu_torch.selection import FrameSelection
-    from molar_tpu_torch.tasks.trajectory import (AnalysisTask, TrajectoryReader,
-                                                  WindowPipeline, auto_window,
-                                                  decode_window_coords)
+    from molar_tpu_torch.tasks.trajectory import AnalysisTask
 
     from torch_structures import HELIX, scene_pdb
 
-    # IO: the headline's first frame as PDB and GRO, written and read back.
+    _reset_launches()
+    # IO: the headline's first two frames; the first written as PDB and GRO
+    # and read back.
     with FileHandler(headline_path) as fh:
         written = mt.System(headline.label_topology(ATOMS, PROTEIN), fh.read_state())
-    io_s, bad_columns, systems = {}, {}, {}
+        frame1 = fh.read_state()
+    io_s, bad_columns = {}, {}
     for ext in ("pdb", "gro"):
         path = os.path.join(workdir, f"conf.{ext}")
         t0 = time.perf_counter()
         written.save(path)
         t1 = time.perf_counter()
-        systems[ext] = mt.System.from_file(path)
+        back = mt.System.from_file(path)
         io_s[f"{ext}_write_s"] = round(t1 - t0, 3)
         io_s[f"{ext}_read_s"] = round(time.perf_counter() - t1, 3)
-        bad_columns[ext] = _columns_as_written(ext, written, systems[ext])
-    system = systems["pdb"]
+        bad_columns[ext] = _columns_as_written(ext, written, back)
     pdb = os.path.join(workdir, "conf.pdb")
+    card = mt.System.from_file(pdb)  # device None: the card
+    host = mt.System.from_file(pdb, device="cpu")
+    if card.device.type != "cuda" or host.device.type != "cpu":
+        raise AssertionError(f"user API devices: card {card.device}, host {host.device}")
+    card2 = mt.System(card.topology, frame1.copy())
+    host2 = mt.System(host.topology, frame1.copy(), device="cpu")
 
-    # Measures of sys("protein") on the host against ops.measure on the card.
-    prot = system("protein")
-    c = torch.from_numpy(prot.coords).to(device)[None]
-    m = torch.from_numpy(prot.masses).to(device)
-    box = system.state.box
-    boxes = torch.from_numpy(box.matrix).to(device)[None]
-    invs = torch.from_numpy(box.inv).to(device)[None]
-    t0 = time.perf_counter()
-    host = {"com": prot.com(), "cog": prot.cog(), "gyration": prot.gyration(),
-            "inertia": prot.inertia()[0], "com_pbc": prot.com(mt.PBC_FULL),
-            "cog_pbc": prot.cog(mt.PBC_FULL), "gyration_pbc": prot.gyration(mt.PBC_FULL),
-            "inertia_pbc": prot.inertia(mt.PBC_FULL)[0]}
-    host_measure_s = time.perf_counter() - t0
-    card = {"com": measure.center(c, m), "cog": measure.center(c),
-            "gyration": measure.gyration(c, m), "inertia": measure.inertia(c, m)[0],
-            "com_pbc": measure.center_pbc(c, m, boxes, invs),
-            "cog_pbc": measure.center_pbc(c, None, boxes, invs),
-            "gyration_pbc": measure.gyration(c, m, boxes, invs),
-            "inertia_pbc": measure.inertia(c, m, boxes, invs)[0]}
-    measure_rel = {k: _rel(card[k][0].cpu().numpy(), host[k]) for k in host}
+    # Measures of sys("protein"), with and without PBC.
+    failures = [f"{ext} columns {b}" for ext, b in bad_columns.items() if any(b.values())]
+    measures = {}
+    for pbc in (None, mt.PBC_FULL):
+        tag = "" if pbc is None else "_pbc"
+        cp, hp = card("protein"), host("protein")
+        for name, call in (("com", lambda s: s.com(pbc)), ("cog", lambda s: s.cog(pbc)),
+                           ("gyration", lambda s: s.gyration(pbc)),
+                           ("moments", lambda s: s.inertia(pbc)[0]),
+                           ("inertia_com", lambda s: s.inertia(pbc)[2]),
+                           ("principal", lambda s: s.principal_transform(pbc))):
+            kind = "fit" if name == "principal" else "measure"
+            measures[name + tag] = _user_diff(kind, call(cp), call(hp))
+    measures["min_max"] = _user_diff("measure", card("protein").min_max(),
+                                     host("protein").min_max())
+    axes = (card("protein").inertia()[1], host("protein").inertia()[1])
+    measures["inertia_axes"] = float(np.abs(axes[0] - axes[1]).max()) / USER_ROTATION_ATOL
 
-    # The within selection: host evaluator, within_of, and the device tier
-    # on the card (one cell_bins and one within_ghost launch).
+    # The per-call table: the card against the CPU, each answer compared.
     text = "within 0.5 pbc of protein"
-    t0 = time.perf_counter()
-    by_text = system(text).indices
-    t1 = time.perf_counter()
-    by_within_of = system().within_of(CUTOFF, prot, mt.PBC_FULL).indices
-    t2 = time.perf_counter()
-    fs = FrameSelection(text, system.topology, system.state, device=device)
-    coords = torch.from_numpy(system.state.coords).to(device)[None]
-    torch.cuda.synchronize()
-    _reset_launches()
-    t3 = time.perf_counter()
-    masks, overflow = fs.compiled(coords, boxes, invs)
-    by_card = np.flatnonzero(masks[0].cpu().numpy())
-    within_s = {"within_host_evaluator_s": round(t1 - t0, 3), "within_of_s": round(t2 - t1, 3),
-                "within_card_ms": round((time.perf_counter() - t3) * 1e3, 3)}
+    calls = {
+        "com": ("measure", lambda s, s2, n: s((0, n)).com()),
+        "gyration": ("measure", lambda s, s2, n: s((0, n)).gyration()),
+        "fit_transform": ("fit", lambda s, s2, n: s((0, n)).fit_transform(s2((0, n)))),
+        "rmsd_mw": ("rmsd", lambda s, s2, n: s((0, n)).rmsd_mw(s2((0, n)))),
+        "within_of": ("set", lambda s, s2, n: s((0, n)).within_of(CUTOFF, s("protein"),
+                                                                  mt.PBC_FULL)),
+        "select": ("set", lambda s, s2, n: s(f"index 0:{n - 1} and {text}")),
+        "distance_search": ("pairs", lambda s, s2, n: mt.distance_search(
+            CUTOFF, s((0, n)), s("protein"), mt.PBC_FULL)),
+        "sasa": ("sasa", lambda s, s2, n: s((0, n)).sasa()),
+    }
+    table, per_call_launches = {}, {}
+    for name, (kind, call) in calls.items():
+        for n in (USER_SASA_SIZES if name == "sasa" else USER_SIZES):
+            def on(s, s2, call=call, n=n):
+                return lambda: call(s, s2, n)
 
-    # The examples' shape: per-frame RMSD of sys("protein") through the
-    # host AnalysisTask (Sel.fit + rmsd_mw a frame) and through a
-    # WindowPipeline whose window function fits on the card.
-    ref = mt.System.from_file(pdb)
+            _, launched = _launched(on(card, card2))  # warm-up, and the launches of one call
+            got, card_s = _median_s(on(card, card2), USER_CARD_REPEATS)
+            heavy = (n == ATOMS and kind in ("set", "pairs")) or (kind == "sasa" and n > 100)
+            want, host_s = _median_s(on(host, host2), 1 if heavy else USER_HOST_REPEATS)
+            diff = _user_diff(kind, got, want)
+            table[f"{name}@{n}"] = (card_s * 1e3, host_s * 1e3)
+            phase("user_api_call", call=name, atoms=n, card_ms=round(card_s * 1e3, 4),
+                  cpu_ms=round(host_s * 1e3, 4), cpu_over_card=round(host_s / card_s, 3),
+                  worst_over_bar=diff, launches=launched)
+            if not diff <= 1.0:
+                failures.append(f"{name} at {n} atoms: {diff} of its bar")
+            if name in ("within_of", "select"):
+                per_call_launches[f"{name}@{n}"] = launched
+                if (launched["cell_bins"] < 1 or launched["within_ghost"] < 1
+                        or launched["within_rows"]):
+                    failures.append(f"{name} at {n} atoms launched {launched}")
+            elif any(launched.values()):
+                failures.append(f"{name} at {n} atoms launched {launched}")
+    sasa_v = (card((0, 100)).sasa(with_volume=True), host((0, 100)).sasa(with_volume=True))
+    volume_rel = _rel(sasa_v[0].total_volume(), sasa_v[1].total_volume())
+    if not volume_rel <= USER_VOLUME_RTOL:
+        failures.append(f"volume of 100 atoms off by {volume_rel} relative")
 
+    # The per-frame RMSD of the protein through AnalysisTask (Sel.fit +
+    # rmsd_mw a frame) on each route over conf.pdb and the headline XTC.
     class Rmsd(AnalysisTask):
         def pre_process(self):
-            self.sel, self.ref, self.rmsd = self.src("protein"), ref("protein"), []
+            self.sel = self.src("protein")
+            self.ref, self.rmsd = self.sel.to_system(), []
 
         def process_frame(self):
-            self.sel.fit(self.ref)
-            self.rmsd.append(self.sel.rmsd_mw(self.ref))
+            self.sel.fit(self.ref("all"))
+            self.rmsd.append(self.sel.rmsd_mw(self.ref("all")))
 
-    task = Rmsd()
-    t0 = time.perf_counter()
-    n_host = task.run(["-f", pdb, headline_path, "--log", "0"]).consumed_frames
-    host_fps = n_host / (time.perf_counter() - t0)
-    sel = ref("protein")
-    ref_t = torch.from_numpy(sel.coords).to(device)
-    masses_t = torch.from_numpy(sel.masses).to(device)
-    window = auto_window(headline_path, sel.indices)
+    tasks, fps = {}, {}
+    for route, dev in (("card", None), ("cpu", "cpu")):
+        tasks[route] = Rmsd()
+        t0 = time.perf_counter()
+        n = tasks[route].run(["-f", pdb, headline_path, "--log", "0"], device=dev).consumed_frames
+        fps[route] = n / (time.perf_counter() - t0)
+    rmsd_err = float(np.abs(np.subtract(tasks["card"].rmsd, tasks["cpu"].rmsd)).max())
+    if (tasks["card"].src.device.type != "cuda" or len(tasks["card"].rmsd) != n
+            or not rmsd_err <= USER_RMSD_ATOL):
+        failures.append(f"AnalysisTask: card device {tasks['card'].src.device}, "
+                        f"{len(tasks['card'].rmsd)} of {n} frames, rmsd err {rmsd_err}")
 
-    def fit_window(transport, boxes_w, invs_w):
-        return measure.fit_rmsd(decode_window_coords(transport), ref_t, masses_t)[0]
-
-    t0 = time.perf_counter()
-    out = list(WindowPipeline(TrajectoryReader([headline_path]), window, fit_window, device,
-                              quantized=_wire(), subset=sel.indices).run())
-    card_rmsd = torch.cat([r for _, r in out]).cpu().numpy()
-    card_fps = len(card_rmsd) / (time.perf_counter() - t0)
-    ids = np.concatenate([i for i, _ in out])
-    rmsd_err = (float(np.abs(card_rmsd - np.asarray(task.rmsd)).max())
-                if len(card_rmsd) == n_host else float("inf"))
-
-    # SASA of a protein slice: host Lee-Richards against ops.sasa_lr on the card.
-    sl = system(f"protein and index < {USER_SASA_ATOMS}")
-    t0 = time.perf_counter()
-    host_areas = sl.sasa().areas()
-    host_sasa_s = time.perf_counter() - t0
-    radii = (system.topology.vdw()[sl.indices] + np.float32(0.14)).astype(np.float32)
-    nbr, nbr_overflow = sasa_lr.neighbor_lists(sl.coords, radii, cap=USER_SASA_CAP)
-    args_t = [torch.from_numpy(a).to(device) for a in (sl.coords, radii, nbr)]
-    sasa_lr.sasa(*args_t)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    card_areas = sasa_lr.sasa(*args_t).cpu().numpy()
-    card_sasa_ms = (time.perf_counter() - t0) * 1e3
-    sasa_rel = float(np.max(np.abs(card_areas - host_areas) / np.maximum(np.abs(host_areas),
-                                                                         1e-3)))
-
-    # DSSP / dss of an ideal alpha-helix built by NeRF.
+    # DSSP / dss of an ideal alpha-helix built by NeRF (host work).
     helix_pdb = os.path.join(workdir, "helix.pdb")
     with open(helix_pdb, "w") as fh:
         fh.write(scene_pdb(chains=(np.array([HELIX] * USER_HELIX_RESIDUES),), n_water=0,
@@ -2957,33 +3017,17 @@ def phase_user_api(device, workdir, headline_path):
     ss_gmx, ss_dss = helix.dssp("gmx"), helix.dss()
     dssp_s = time.perf_counter() - t0
     interior = "H" * (USER_HELIX_RESIDUES - 2)
-    launches = _launches()
-
-    phase("user_api", atoms=ATOMS, protein=PROTEIN, **io_s, bad_columns=bad_columns,
-          measure_rel_err=measure_rel, host_measure_s=round(host_measure_s, 4),
-          within_atoms=len(by_text), **within_s, within_tier=fs.tier, within_card_overflow=bool(overflow.any()),
-          launches=launches, frames=n_host, analysis_task_fps=round(host_fps, 3),
-          card_window=window, card_window_fps=round(card_fps, 3), rmsd_max_abs_err=rmsd_err,
-          sasa_atoms=len(sl), host_sasa_s=round(host_sasa_s, 3),
-          card_sasa_ms=round(card_sasa_ms, 3), sasa_rel_err=sasa_rel,
-          sasa_total_nm2=round(float(host_areas.sum()), 4), sasa_nbr_overflow=bool(nbr_overflow),
-          helix_dssp_gmx=ss_gmx, helix_dss=ss_dss, dssp_s=round(dssp_s, 4))
-    failures = [f"{ext} columns {b}" for ext, b in bad_columns.items() if any(b.values())]
-    failures += [f"measure {k} rel err {v}" for k, v in measure_rel.items()
-                 if not v <= USER_MEASURE_RTOL]
-    if not (np.array_equal(by_text, by_within_of) and np.array_equal(by_text, by_card)):
-        failures.append(f"within: host {len(by_text)}, within_of {len(by_within_of)}, "
-                        f"card {len(by_card)} atoms differ")
-    if fs.tier != "device" or overflow.any():
-        failures.append(f"within took tier {fs.tier}, overflow {bool(overflow.any())}")
-    if launches != {"cell_bins": 1, "within_ghost": 1, "within_rows": 0}:
-        failures.append(f"launches {launches}: expected one cell_bins and one within_ghost")
-    if not np.array_equal(ids, np.arange(n_host)) or not rmsd_err <= USER_RMSD_ATOL:
-        failures.append(f"rmsd: {n_host} host frames, card ids {ids[:3]}.., err {rmsd_err}")
-    if nbr_overflow or not sasa_rel <= USER_SASA_RTOL:
-        failures.append(f"sasa rel err {sasa_rel}, list overflow {nbr_overflow}")
     if ss_gmx[1:-1] != interior or ss_dss[1:-1] != interior:
         failures.append(f"helix dssp {ss_gmx!r} dss {ss_dss!r}")
+    torch.cuda.synchronize()
+    launches = _launches()
+    phase("user_api", atoms=ATOMS, protein=PROTEIN, **io_s, bad_columns=bad_columns,
+          measures_worst_over_bar={k: round(v, 4) for k, v in measures.items()},
+          volume_rel_err=volume_rel, within_launches=per_call_launches, frames=n,
+          analysis_task_fps_card=round(fps["card"], 3), analysis_task_fps_cpu=round(fps["cpu"], 3),
+          rmsd_max_abs_err=rmsd_err, helix_dssp_gmx=ss_gmx, helix_dss=ss_dss,
+          dssp_s=round(dssp_s, 4), launches=launches)
+    failures += [f"measure {k}: {v} of its bar" for k, v in measures.items() if not v <= 1.0]
     if failures:
         raise AssertionError("user-API path: " + "; ".join(failures))
     return launches
@@ -3632,8 +3676,11 @@ def _host_mesh(device, headline_path):
 
 def _host_membrane(device, workdir):
     """membrane_dev through the host Membrane, MembraneDevice(membrane) on
-    the card and ``molar-torch membrane``: the CLI's group files equal the
-    host route's byte for byte, the card's within MEMBRANE_TOL."""
+    the card and ``molar-torch membrane`` on both routes: the CLI's group
+    files with ``--device cpu`` equal the host route's byte for byte; the
+    card's statistics and the CLI's files on the card (its default) within
+    MEMBRANE_TOL of the host's; the card CLI's ``--vmd`` drawing of the last
+    frame (an untimed run) byte-equal to the host Membrane's."""
     import contextlib
     import io
 
@@ -3646,7 +3693,7 @@ def _host_membrane(device, workdir):
     from molar_tpu_torch.membrane import Membrane, MembraneDevice, split_leaflets
     from molar_tpu_torch.tasks.trajectory import TrajectoryReader
 
-    from torch_scenes import membrane_group_diffs
+    from torch_scenes import membrane_file_diffs, membrane_group_diffs
 
     bilayer = wl.synth_bilayer(HOST_MEMBRANE_SIDE, HOST_MEMBRANE_SIDE)
     n = len(bilayer.coords)
@@ -3658,7 +3705,8 @@ def _host_membrane(device, workdir):
     gro, xtc = os.path.join(workdir, "bilayer.gro"), os.path.join(workdir, "bilayer.xtc")
     mt.System(top, State(coords=bilayer.coords, box=PeriodicBox(bilayer.box))).save(gro)
     wl.write_membrane_xtc(bilayer, xtc, HOST_MEMBRANE_FRAMES)
-    outs = {r: os.path.join(workdir, f"membrane_{r}") for r in ("host", "card", "cli")}
+    outs = {r: os.path.join(workdir, f"membrane_{r}") for r in ("host", "card", "cli",
+                                                                 "cli_card", "cli_vmd")}
     tomls = {}
     for route, out in outs.items():
         tomls[route] = os.path.join(workdir, f"membrane_{route}.toml")
@@ -3684,39 +3732,149 @@ def _host_membrane(device, workdir):
     card_frames, card_s, _ = wl.run_membrane(dev, xtc)
     card_memb.finalize()
 
-    out = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        rc = cli.main(["membrane", "-f", gro, xtc, "-p", tomls["cli"], "--log", "0"])
-    cli_s = time.perf_counter() - t0
+    cli_s, rcs = {}, {}
+    for route, extra in (("cli", ["--device", "cpu"]), ("cli_card", [])):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rcs[route] = cli.main(["membrane", "-f", gro, xtc, "-p", tomls[route], "--log", "0",
+                                   *extra])
+        cli_s[route] = time.perf_counter() - t0
     names = sorted(os.listdir(outs["host"]))
-    cli_equal = rc == 0 and names == sorted(os.listdir(outs["cli"])) and all(
+    cli_equal = rcs["cli"] == 0 and names == sorted(os.listdir(outs["cli"])) and all(
         open(os.path.join(outs["host"], f), "rb").read()
         == open(os.path.join(outs["cli"], f), "rb").read() for f in names)
+    cli_card = (membrane_file_diffs(outs["host"], outs["cli_card"]) if rcs["cli_card"] == 0
+                else {"rc": float("inf")})
+    vmd = {r: os.path.join(workdir, f"membrane_{r}.tcl") for r in ("host", "cli_vmd")}
+    host.write_vmd_visualization(vmd["host"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        rcs["cli_vmd"] = cli.main(["membrane", "-f", gro, xtc, "-p", tomls["cli_vmd"], "--log",
+                                   "0", "--vmd", vmd["cli_vmd"]])
+    vmd_equal = rcs["cli_vmd"] == 0 and (open(vmd["host"], "rb").read()
+                                        == open(vmd["cli_vmd"], "rb").read())
     diffs = membrane_group_diffs(host.groups, card_memb.groups)
     phase("host_membrane", lipids=nl, frames=frames, host_fps=host_fps,
           card_fps=card_frames / card_s, card_vs_host=(card_frames / card_s) / host_fps,
-          card_engine=dev.engine_resolved, patch_cap=dev.patch_cap, cli_s=round(cli_s, 3),
-          files=names, cli_files_equal_host=cli_equal,
+          card_engine=dev.engine_resolved, patch_cap=dev.patch_cap,
+          cli_cpu_s=round(cli_s["cli"], 3), cli_card_s=round(cli_s["cli_card"], 3),
+          cli_cpu_fps=frames / cli_s["cli"], cli_card_fps=frames / cli_s["cli_card"],
+          files=names, cli_cpu_files_equal_host=cli_equal, cli_card_vmd_equal_host=vmd_equal,
+          cli_card_files_worst_over_tol=repr({k: round(v, 4) for k, v in cli_card.items()}),
           card_vs_host_worst_over_tol=repr({k: round(v, 4) for k, v in diffs.items()}),
           valid_host_last_frame=sum(lip.valid for lip in host.lipids))
-    if not cli_equal or card_frames != frames or not all(v <= 1.0 for v in diffs.values()):
-        raise AssertionError(f"host membrane: cli equal {cli_equal}, card frames "
-                             f"{card_frames}/{frames}, card vs host {diffs}")
+    if (not cli_equal or not vmd_equal or card_frames != frames
+            or not all(v <= 1.0 for v in diffs.values())
+            or not all(v <= 1.0 for v in cli_card.values())):
+        raise AssertionError(f"host membrane: cli cpu files equal {cli_equal}, card vmd equal "
+                             f"{vmd_equal}, card frames {card_frames}/{frames}, card vs host "
+                             f"{diffs}, cli card files {cli_card}")
+
+
+def _host_solvate(device, workdir, headline_path):
+    """``molar-torch solvate`` of the headline's protein (5,000 atoms, its
+    10 nm box) in a 216-water box tiled over it, on the card (its default)
+    and with ``--device cpu``: the same file, byte for byte; each route's
+    seconds."""
+    import contextlib
+    import io
+
+    import molar_tpu_torch as mt
+    from molar_tpu_torch import cli, headline
+    from molar_tpu_torch.io import FileHandler
+
+    from torch_scenes import water_box
+
+    with FileHandler(headline_path) as fh:
+        full = mt.System(headline.label_topology(ATOMS, PROTEIN), fh.read_state(),
+                         device="cpu")
+    solute, solvent = (os.path.join(workdir, f"{name}.gro") for name in ("solute", "water"))
+    full("protein").to_system().save(solute)
+    water_box().save(solvent)
+    secs, said, outs = {}, {}, {}
+    for route, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        outs[route] = os.path.join(workdir, f"solvated_{route}.gro")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["solvate", "-f", solute, "-s", solvent, "-o", outs[route], *extra])
+        secs[route] = time.perf_counter() - t0
+        said[route] = out.getvalue().strip().replace(outs[route], "OUT")
+        if rc:
+            raise AssertionError(f"solvate on the {route} route returned {rc}: {said[route]}")
+    equal = open(outs["card"], "rb").read() == open(outs["cpu"], "rb").read()
+    atoms = mt.System.from_file(outs["card"]).n_atoms
+    phase("host_solvate", solute_atoms=PROTEIN, solvated_atoms=atoms,
+          card_s=round(secs["card"], 3), cpu_s=round(secs["cpu"], 3),
+          cpu_over_card=round(secs["cpu"] / secs["card"], 3), files_equal=equal,
+          said=repr(said["card"]))
+    if not equal or said["card"] != said["cpu"] or atoms <= PROTEIN:
+        raise AssertionError(f"solvate: files equal {equal}, said {said}")
+
+
+def _examples(device, workdir):
+    """The six examples of ``molar_tpu_torch/examples`` on the card, on
+    ``torch_scenes.example_inputs`` -> the kernel launches they made (the
+    contacts example's ghost kernels, one pair a window)."""
+    import contextlib
+    import importlib
+    import io
+
+    from torch_scenes import example_argv, example_inputs
+
+    d = os.path.join(workdir, "examples")
+    os.makedirs(d)
+    paths = example_inputs(d)
+    _reset_launches()
+    outputs, secs = {}, {}
+    for name, argv in example_argv(paths).items():
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = importlib.import_module(f"molar_tpu_torch.examples.{name}").main(argv)
+        secs[name] = round(time.perf_counter() - t0, 3)
+        outputs[name] = out.getvalue()
+        if rc:
+            raise AssertionError(f"example {name} returned {rc}")
+    launches = _launches()
+
+    def rows(name):
+        return [line.split("\t") for line in outputs[name].splitlines() if "\t" in line]
+
+    rmsd = [float(r) for _, r in rows("rmsd_trajectory")]
+    counts = [int(c) for _, c in rows("contacts")]
+    checks = {
+        "rmsd_frames": len(rmsd) == 6 and max(rmsd) < 0.05,
+        "contact_frames": len(counts) == 6 and min(counts) > 0,
+        "report": all(k in outputs["structure_report"] for k in ("SASA:", "volume:", "DSSP:")),
+        "membrane": "3 frames" in outputs["membrane_curvature"],
+        "tip3to4": "3 waters converted" in outputs["tip3to4_tutorial"],
+        "assign_ff": "rings" in outputs["assign_ff"],
+        "launches": launches["cell_bins"] == launches["within_ghost"] == 2
+        and not launches["within_rows"],
+    }
+    phase("examples", seconds=secs, launches=launches, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"examples: {checks}; outputs {outputs}")
+    return launches
 
 
 def phase_host_half(device, workdir, headline_path, q14):
-    """Phase 20: the rest of the host half on the card's machine. Only the
-    TRR and NetCDF streams launch kernels (the ghost pair, once each a
-    within node a window) -> their launches."""
+    """Phase 20: the rest of the host half on the card's machine, the CLI's
+    ``membrane`` and ``solvate`` on both routes, and the examples. Only the
+    TRR and NetCDF streams (the ghost pair, once each a within node a
+    window) and the contacts example (once each a window) launch kernels ->
+    their launches."""
     launches, _ = _host_formats(device, workdir, headline_path)
     _reset_launches()
     _host_ligands(device, q14)
     _host_mesh(device, headline_path)
     _host_membrane(device, workdir)
+    _host_solvate(device, workdir, headline_path)
     if any(_launches().values()):
         raise AssertionError(f"host half: kernels launched off the streams: {_launches()}")
-    return launches
+    examples = _examples(device, workdir)
+    return {k: v + examples[k] for k, v in launches.items()}
 
 
 def main() -> int:

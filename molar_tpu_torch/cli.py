@@ -3,9 +3,10 @@
 The subcommands of ``molar_tpu.cli`` (reference: molar_bin/src/main.rs:30-100):
 
 * ``info`` — the package, torch and CUDA versions, each CUDA device's name
-  and compute capability, and whether ``build/molar_tpu_torch/`` holds the
-  built kernels and the XTC codec. Without a CUDA device it says so and
-  exits 1: the CPU is never reported as the device.
+  and compute capability, the default device, and whether
+  ``build/molar_tpu_torch/`` holds the built kernels and the XTC codec.
+  Without a CUDA device it says so and exits 1: the CPU is never reported
+  as the device.
 * ``trjconv`` — stream an XTC and write a selection to DCD
   (:func:`molar_tpu_torch.io.trjconv.trjconv`), the structure file read by
   ``System.from_file`` (any structure format) and the selection evaluated by
@@ -16,19 +17,28 @@ The subcommands of ``molar_tpu.cli`` (reference: molar_bin/src/main.rs:30-100):
   (command_rearrange.rs);
 * ``solvate`` — tile a solvent box over the solute box, drop solvent
   residues outside the box or vdW-overlapping the solute
-  (command_solvate.rs; default solvent $GMXDATA/top/spc216.gro);
+  (command_solvate.rs; default solvent $GMXDATA/top/spc216.gro); the
+  overlap search is ``distance_search``'s (:mod:`.core.sel_device`) on the
+  card;
 * ``tip3to4`` — convert TIP3 waters to TIP4 by inserting the M dummy
   (command_tip3_to_tip4.rs; M at O + 0.01546 nm towards the H midpoint);
-* ``membrane`` — the TOML-configured lipid membrane analysis, the host
-  :class:`~molar_tpu_torch.membrane.Membrane` frame by frame.
+* ``membrane`` — the TOML-configured lipid membrane analysis:
+  ``MembraneDevice(membrane)`` over the trajectory's windows on the card,
+  folding into the :class:`~molar_tpu_torch.membrane.Membrane`'s groups;
+  ``--vmd`` draws the last frame's geometry, from the host pipeline on that
+  frame.
 
-Every subcommand but ``info`` is host work, with the JAX CLI's arguments,
-messages and output files.
+``solvate`` and ``membrane`` run on the card (raising without one) unless
+``--device cpu`` asks for their host route: the neighbour search of
+``ops.neighbor_host`` and the host ``Membrane`` frame by frame, whose
+files are byte-equal to the JAX CLI's. The other subcommands are host
+work, with the JAX CLI's arguments, messages and output files.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import logging
 import os
 import sys
@@ -41,7 +51,7 @@ log = logging.getLogger("molar")
 def cmd_info(args) -> int:
     import torch
 
-    from . import __version__, build
+    from . import __version__, build, config
 
     print(f"molar_tpu_torch {__version__}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -54,6 +64,8 @@ def cmd_info(args) -> int:
     for i in range(count):
         major, minor = torch.cuda.get_device_capability(i)
         print(f"  cuda:{i} {torch.cuda.get_device_name(i)}, compute capability {major}.{minor}")
+    print(f"default device: {config.default_device()} (the CPU only by --device cpu or "
+          "config.set_default_device)")
     for label, out, sources in (
             ("kernels", build.BUILD_DIR / "libmolar_kernels.so", build.KERNEL_SOURCES),
             ("xtc codec", build.BUILD_DIR / "libxtc_codec.so", [build.CODEC_SOURCE])):
@@ -143,11 +155,14 @@ def cmd_rearrange(args) -> int:
 
 
 def cmd_solvate(args) -> int:
+    from . import config
+    from .core import sel_device
+    from .core.pbc import PBC_FULL
     from .core.system import System
     from .ops import neighbor_host
-    from .core.pbc import PBC_FULL
 
-    solute = System.from_file(args.input)
+    dev = config.resolve_device(args.device)
+    solute = System.from_file(args.input, device=dev)
     if solute.box is None:
         print("error: can't solvate a system without a periodic box", file=sys.stderr)
         return 1
@@ -161,7 +176,7 @@ def cmd_solvate(args) -> int:
             )
             return 1
         solvent_file = os.path.join(gmx, "top", "spc216.gro")
-    solvent = System.from_file(solvent_file)
+    solvent = System.from_file(solvent_file, device=dev)
     if solvent.box is None or solvent.box.is_triclinic:
         print("error: solvent must have an orthorhombic box", file=sys.stderr)
         return 1
@@ -183,15 +198,10 @@ def cmd_solvate(args) -> int:
     n_solv = solvent.n_atoms
     vdw = np.concatenate([solvent.topology.vdw(), solute.topology.vdw()])
     max_cut = float(2 * vdw.max() + 1e-6)
-    pairs, _ = neighbor_host.search_pairs(
-        max_cut,
-        combined_coords,
-        np.arange(n_solv),
-        np.arange(n_solv, len(combined_coords)),
-        solute.box,
-        PBC_FULL,
-        vdw=vdw,
-    )
+    search = (neighbor_host.search_pairs if config.on_host(dev)
+              else functools.partial(sel_device.search_pairs, device=dev))
+    pairs, _ = search(max_cut, combined_coords, np.arange(n_solv),
+                      np.arange(n_solv, len(combined_coords)), solute.box, PBC_FULL, vdw=vdw)
     overlap_res = np.unique(solvent.topology.resindex[np.unique(pairs[:, 0])])
     log.info("%d overlapping solvent residues", len(overlap_res))
     keep = ~np.isin(solvent.topology.resindex, overlap_res)
@@ -258,12 +268,15 @@ def cmd_tip3to4(args) -> int:
 
 
 def cmd_membrane(args) -> int:
+    from . import config
     from .core.system import System
-    from .membrane import Membrane, split_leaflets
+    from .membrane import Membrane, MembraneDevice, split_leaflets
     from .tasks.trajectory import FrameSpec, TrajectoryReader
 
-    sys_ = System.from_file(args.files[0])
-    memb = Membrane(sys_, open(args.params).read())
+    dev = config.resolve_device(args.device)
+    sys_ = System.from_file(args.files[0], device=dev)
+    with open(args.params) as fh:
+        memb = Membrane(sys_, fh.read())
     # Leaflet auto-split when groups 'upper'/'lower' are configured.
     split_leaflets(memb)
     reader = TrajectoryReader(
@@ -273,12 +286,21 @@ def cmd_membrane(args) -> int:
         skip=args.skip,
     )
     n = 0
-    for fr, st in reader.iter_states():
-        sys_.set_state(st)
-        memb.compute()
-        n += 1
-        if args.log_every and n % args.log_every == 0:
-            log.info("frame %d done", fr)
+    if config.on_host(dev):
+        for fr, st in reader.iter_states():
+            sys_.set_state(st)
+            memb.compute()
+            n += 1
+            if args.log_every and n % args.log_every == 0:
+                log.info("frame %d done", fr)
+    else:
+        # The windows of the membrane's rows through the card's pipeline,
+        # folded into ``memb.groups`` window by window.
+        from .workloads import MEMBRANE_WINDOW, last_frame_geometry, stream_membrane
+
+        n, _ = stream_membrane(MembraneDevice(memb, device=dev), reader, MEMBRANE_WINDOW)
+        if args.vmd:
+            last_frame_geometry(memb, reader)
     memb.finalize()
     if args.vmd:
         memb.write_vmd_visualization(args.vmd)
@@ -307,6 +329,8 @@ def main(argv=None) -> int:
     p.add_argument("-o", "--output", required=True)
     p.add_argument("-s", "--solvent", default=None)
     p.add_argument("-x", "--exclude", default=None)
+    p.add_argument("--device", default=None,
+                   help="device of the overlap search (default: the card; cpu: the host route)")
 
     p = sub.add_parser("tip3to4", help="convert TIP3 waters to TIP4")
     p.add_argument("-f", "--input", required=True)
@@ -332,6 +356,8 @@ def main(argv=None) -> int:
     p.add_argument("--skip", type=int, default=1)
     p.add_argument("--log", type=int, default=100, dest="log_every")
     p.add_argument("--vmd", default=None, help="write VMD TCL visualization")
+    p.add_argument("--device", default=None,
+                   help="device of the analysis (default: the card; cpu: the host Membrane)")
 
     args = parser.parse_args(argv)
     handlers = {

@@ -6,14 +6,23 @@ molar/src/selection/system.rs:11-22). ``Sel`` is a *bound* selection — a
 sorted, non-empty global index array plus a reference to its system
 (reference sel.rs:10-19: empty selections are an error, not an empty set).
 
-``Sel``'s measures run on host numpy by design (:mod:`molar_tpu_torch.ops.measure_host`):
-below ~1e6 operations a call numpy beats a launch. The card enters where a
-selection feeds a window: ``sel.indices`` / ``sel.coords`` / ``sel.masses``
-into :class:`~molar_tpu_torch.tasks.trajectory.WindowPipeline`, a selection
-text into :class:`~molar_tpu_torch.selection.FrameSelection`. Ring
-perception (:mod:`~molar_tpu_torch.ops.perception`), GAFF typing
-(:mod:`~molar_tpu_torch.ff.gaff`) and surface meshes
-(:mod:`~molar_tpu_torch.ops.surface`) are host work too.
+A ``System`` carries a device (``System(..., device=None)``), resolved at
+its first computing call by :func:`~molar_tpu_torch.config.resolve_device`:
+None is the card (raising where there is none) unless the caller asked for
+the CPU, by ``device="cpu"`` or process-wide with
+:func:`~molar_tpu_torch.config.set_default_device`. Reading and writing
+files resolves nothing. Its selections compute on it: on a card ``Sel``'s
+measures, ``within_of``, ``distance_search``, ``sasa`` and a state-dependent
+selection text run through :mod:`.sel_device` and
+:class:`~molar_tpu_torch.selection.FrameSelection`'s device tier (the ghost
+kernels for ``within``); on the CPU they call the host's numpy functions
+(``ops/measure_host``, ``ops/neighbor_host``, ``ops/sasa_host``, the host
+evaluator), their plain versions. Results come back as numpy either way. A
+call between selections on different devices raises. In-place edits
+(``translate``, ``rotate``, ``apply_transform``, ``wrap``,
+``unwrap_simple``, ``unwrap_connectivity``) write into the host state, as in
+the JAX package, and DSSP / dss, perception, GAFF typing and the surface
+meshes stay host work (Python loops over residues, rings and voxels).
 """
 
 from __future__ import annotations
@@ -21,9 +30,12 @@ from __future__ import annotations
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
+from .. import config
 from ..config import NP_FLOAT as FLOAT
-from ..selection import SelectionExpr
+from ..selection import FrameSelection, SelectionExpr
+from . import sel_device
 from .pbc import PBC_FULL, PBC_NONE, PbcDims, PeriodicBox
 from .state import State
 from .topology import Topology
@@ -51,12 +63,14 @@ def _is_range_tuple(seldef) -> bool:
 
 
 class System:
-    """Owns a topology and the current state; selections bind to it."""
+    """Owns a topology and the current state; selections bind to it and
+    compute on its :attr:`device`."""
 
     def __init__(
         self,
         topology: "Topology | str | None" = None,
         state: Optional[State] = None,
+        device=None,
     ):
         # pymolar constructor overloads (molar.pyi:110-114): System(),
         # System("file.pdb"), System(topology, state).
@@ -82,15 +96,22 @@ class System:
             )
         self.topology = topology
         self.state = state
+        self._device = None if device is None else torch.device(device)
 
     # -- constructors --------------------------------------------------------
 
     @staticmethod
-    def from_file(path: str) -> "System":
+    def from_file(path: str, device=None) -> "System":
         from ..io import read_file
 
         top, st = read_file(str(path))
-        return System(top, st)
+        return System(top, st, device=device)
+
+    @property
+    def device(self) -> torch.device:
+        """The device its selections compute on (resolved on each read:
+        None is the card, or the process's default)."""
+        return config.resolve_device(self._device)
 
     # -- basic accessors ------------------------------------------------------
 
@@ -137,10 +158,8 @@ class System:
             idx = np.arange(seldef[0], seldef[1], dtype=np.int64)
         elif isinstance(seldef, Sel):
             idx = seldef.indices.copy()
-        elif isinstance(seldef, SelectionExpr):
-            idx = seldef.apply(self.topology, self.state, subset)
-        elif isinstance(seldef, str):
-            idx = SelectionExpr(seldef).apply(self.topology, self.state, subset)
+        elif isinstance(seldef, (str, SelectionExpr)):
+            idx = self._evaluate(seldef, subset)
         elif isinstance(seldef, range):
             idx = np.arange(seldef.start, seldef.stop, seldef.step, dtype=np.int64)
         elif isinstance(seldef, slice):
@@ -159,13 +178,28 @@ class System:
                 raise SelectionError("sub-selection indices escape the parent selection")
         return idx
 
+    def _evaluate(self, expr, subset: Optional[np.ndarray] = None) -> np.ndarray:
+        """Sorted indices of a selection text on the current state, in the
+        context of ``subset``: a text that reads no coordinates on the host;
+        one that does through :class:`FrameSelection` on a card (its device
+        tier, or its host tier for what the compiler refuses), and through
+        the host evaluator on the CPU."""
+        if isinstance(expr, str):
+            expr = SelectionExpr(expr)
+        if expr.is_state_dependent:
+            dev = self.device
+            if not config.on_host(dev):
+                return FrameSelection(expr, self.topology, self.state, device=dev,
+                                      subset=subset).eval_frame(self.state)
+        return expr.apply(self.topology, self.state, subset)
+
     def select(self, seldef: SelectionDef = None) -> "Sel":
         return Sel(self, self._resolve_def(seldef))
 
     def select_indices(self, text: str) -> np.ndarray:
-        """Sorted atom indices of a selection text on the current state
-        (host evaluator); empty where nothing matches."""
-        return SelectionExpr(text).apply(self.topology, self.state)
+        """Sorted atom indices of a selection text on the current state;
+        empty where nothing matches."""
+        return self._evaluate(text)
 
     __call__ = select
 
@@ -348,7 +382,7 @@ class System:
         the forward runs on ``device`` (None: the card)."""
         from ..ff.espaloma import apply_charges as _charges
 
-        return _charges(self, device=device)
+        return _charges(self, device=self._device if device is None else device)
 
 
 def _combined_coords(sel1: "Sel", sel2: Optional["Sel"]) -> np.ndarray:
@@ -381,7 +415,8 @@ def distance_search(
     """Free-function pair search (reference pymolar.distance_search,
     molar_python/src/lib.rs:239-376): float cutoff or the string 'vdw'
     (per-pair vdw_i+vdw_j), one selection (self pairs) or two; returns
-    ((K,2) global index pairs, (K,) distances)."""
+    ((K,2) global index pairs, (K,) distances), sorted by (i, j) on every
+    device."""
     from ..ops import neighbor_host
 
     st = sel1.state
@@ -393,10 +428,18 @@ def distance_search(
         vdw = sel1.topology.vdw()
         cutoff = float(2 * vdw.max() + 1e-6)
     idx2 = None if sel2 is None else sel2.indices
-    return neighbor_host.search_pairs(
-        float(cutoff), _combined_coords(sel1, sel2), sel1.indices, idx2,
-        box, pbc, vdw=vdw,
-    )
+    dev = sel1._card(*([] if sel2 is None else [sel2]))
+    coords = _combined_coords(sel1, sel2)
+    if dev is not None:
+        return sel_device.search_pairs(float(cutoff), coords, sel1.indices, idx2, box, pbc,
+                                       vdw=vdw, device=dev)
+    return sel_device.sort_pairs(*neighbor_host.search_pairs(float(cutoff), coords,
+                                                             sel1.indices, idx2, box, pbc,
+                                                             vdw=vdw))
+
+
+def _device_key(device: torch.device):
+    return device.type, device.index or 0
 
 
 class Sel:
@@ -419,6 +462,21 @@ class Sel:
     @property
     def topology(self) -> Topology:
         return self.system.topology
+
+    @property
+    def device(self) -> torch.device:
+        return self.system.device
+
+    def _card(self, *others: "Sel") -> Optional[torch.device]:
+        """The device a call on this selection (and ``others``) computes on,
+        None where that is the host's numpy functions. Selections of
+        systems on different devices raise."""
+        raw = {s.system._device for s in (self, *others)}
+        devs = {_device_key(d): d for d in (config.resolve_device(r) for r in raw)}
+        if len(devs) > 1:
+            raise SelectionError(f"selections on different devices: {sorted(devs)}")
+        dev = next(iter(devs.values()))
+        return None if config.on_host(dev) else dev
 
     @property
     def state(self) -> State:
@@ -638,67 +696,75 @@ class Sel:
             return None, PBC_NONE
         return self.state.require_box(), pbc
 
+    def _route(self, host_fn, card_fn, *args, others=()):
+        """``host_fn(*args)`` on the CPU, ``card_fn(*args, device)`` on a
+        card (the same signature and answer, :mod:`.sel_device`)."""
+        dev = self._card(*others)
+        return host_fn(*args) if dev is None else card_fn(*args, dev)
+
     def min_max(self) -> tuple[np.ndarray, np.ndarray]:
         from ..ops import measure_host as M
 
-        return M.min_max(self.state.coords[self.indices])
+        return self._route(M.min_max, sel_device.min_max, self.state.coords[self.indices])
+
+    def _center(self, weights, pbc: Optional[PbcDims]) -> np.ndarray:
+        from ..ops import measure_host as M
+
+        box, dims = self._pbc_box(pbc)
+        c = self.state.coords[self.indices]
+        if box is None:
+            return self._route(M.center, sel_device.center, c, weights)
+        return self._route(M.center_pbc, sel_device.center_pbc, c, weights, box, dims)
 
     def com(self, pbc: Optional[PbcDims] = None) -> np.ndarray:
         from ..ops import measure_host as M
 
-        box, dims = self._pbc_box(pbc)
-        c = self.state.coords[self.indices]
         m = self.masses
         if m.sum() == 0:
             raise M.MeasureError("zero total mass")
-        if box is None:
-            return M.center(c, m)
-        return M.center_pbc(c, m, box, dims)
+        return self._center(m, pbc)
 
     def cog(self, pbc: Optional[PbcDims] = None) -> np.ndarray:
-        from ..ops import measure_host as M
-
-        box, dims = self._pbc_box(pbc)
-        c = self.state.coords[self.indices]
-        if box is None:
-            return M.center(c, None)
-        return M.center_pbc(c, None, box, dims)
+        return self._center(None, pbc)
 
     def gyration(self, pbc: Optional[PbcDims] = None) -> float:
         from ..ops import measure_host as M
 
         box, dims = self._pbc_box(pbc)
-        return M.gyration(self.state.coords[self.indices], self.masses, box, dims)
+        return self._route(M.gyration, sel_device.gyration, self.state.coords[self.indices],
+                           self.masses, box, dims)
 
     def inertia(self, pbc: Optional[PbcDims] = None):
         from ..ops import measure_host as M
 
         box, dims = self._pbc_box(pbc)
-        return M.inertia(self.state.coords[self.indices], self.masses, box, dims)
+        return self._route(M.inertia, sel_device.inertia, self.state.coords[self.indices],
+                           self.masses, box, dims)
 
     def principal_transform(self, pbc: Optional[PbcDims] = None):
         from ..ops import measure_host as M
 
         box, dims = self._pbc_box(pbc)
-        return M.principal_transform(
-            self.state.coords[self.indices], self.masses, box, dims
-        )
+        return self._route(M.principal_transform, sel_device.principal_transform,
+                           self.state.coords[self.indices], self.masses, box, dims)
 
     def rmsd(self, other: "Sel") -> float:
         from ..ops import measure_host as M
 
-        return M.rmsd(self.coords, other.coords)
+        return self._route(M.rmsd, sel_device.rmsd, self.coords, other.coords, others=(other,))
 
     def rmsd_mw(self, other: "Sel") -> float:
         from ..ops import measure_host as M
 
-        return M.rmsd_mw(self.coords, other.coords, self.masses)
+        return self._route(M.rmsd_mw, sel_device.rmsd_mw, self.coords, other.coords,
+                           self.masses, others=(other,))
 
     def fit_transform(self, other: "Sel"):
         """(R, t) superimposing self onto other (mass-weighted by self)."""
         from ..ops import measure_host as M
 
-        return M.fit_transform(self.coords, other.coords, self.masses)
+        return self._route(M.fit_transform, sel_device.fit_transform, self.coords,
+                           other.coords, self.masses, others=(other,))
 
     def fit(self, other: "Sel") -> None:
         """Fit self's *whole system* coordinates onto other (in place)."""
@@ -707,16 +773,16 @@ class Sel:
 
     def fit_transform_matching(self, other: "Sel"):
         """Fit using only name-matched atoms (global sequence alignment of
-        atom names; measure.rs fit_transform_matching)."""
-        from ..ops import measure_host as M
+        atom names, on the host; measure.rs fit_transform_matching)."""
         from ..ops.seq_align import matching_atoms_by_name
+
+        from ..ops import measure_host as M
 
         mx, my = matching_atoms_by_name(self.names, other.names)
         if len(mx) == 0:
             raise SelectionError("no matching atoms between selections")
-        return M.fit_transform(
-            self.coords[mx], other.coords[my], self.masses[mx]
-        )
+        return self._route(M.fit_transform, sel_device.fit_transform, self.coords[mx],
+                           other.coords[my], self.masses[mx], others=(other,))
 
     # -- property setters (Python-binding parity: set_same_* bulk writers) --------
 
@@ -876,17 +942,18 @@ class Sel:
     # -- sasa ------------------------------------------------------------------------
 
     def sasa(self, probe: float = 0.14, with_volume: bool = False, n_slices: int = 64):
-        """Solvent-accessible surface areas (exact Lee-Richards host path;
-        reference: sasa.rs / Measure::sasa). Returns a Sasa result object."""
+        """Solvent-accessible surface areas, exact Lee-Richards (reference:
+        sasa.rs / Measure::sasa): ``ops.sasa_lr`` on a card, the host's
+        ``ops.sasa_host`` on the CPU. Returns a Sasa result object."""
         from ..ops.sasa_host import Sasa as _Sasa
 
-        return _Sasa(
-            self.state.coords[self.indices],
-            self.topology.vdw()[self.indices],
-            probe=probe,
-            with_volume=with_volume,
-            n_slices=n_slices,
-        )
+        c = self.state.coords[self.indices]
+        vdw = self.topology.vdw()[self.indices]
+        dev = self._card()
+        if dev is None:
+            return _Sasa(c, vdw, probe=probe, with_volume=with_volume, n_slices=n_slices)
+        volume = sel_device.total_volume(c, vdw, probe, dev) if with_volume else None
+        return _Sasa.from_values(sel_device.sasa(c, vdw, probe, n_slices, dev), volume)
 
     def sas_mesh(self, probe: float = 0.14, spacing: float = 0.05):
         """Solvent-accessible surface triangle mesh (verts, tris); the
@@ -934,15 +1001,15 @@ class Sel:
         """Atoms of self within cutoff of other (self-inclusive at d=0).
 
         Each selection's rows come from its own viewed state (selections
-        can be rebound per frame)."""
+        can be rebound per frame). On a card the ghost kernels search (see
+        :func:`.sel_device.within`); on the CPU the host's cell grid."""
         from ..ops import neighbor_host
 
         box = self.state.box if pbc.any else None
-        found = neighbor_host.search_within(
-            cutoff, _combined_coords(self, other), self.indices,
-            other.indices, box, pbc,
-        )
-        return Sel(self.system, found)
+        return Sel(self.system, self._route(
+            neighbor_host.search_within, sel_device.within, cutoff,
+            _combined_coords(self, other), self.indices, other.indices, box, pbc,
+            others=(other,)))
 
     # -- io -------------------------------------------------------------------------
 
@@ -981,7 +1048,8 @@ class Sel:
             box=None if st.box is None else PeriodicBox(st.box.matrix.copy()),
             step=st.step,
         )
-        return System(self.topology.subset(self.indices), new_state)
+        return System(self.topology.subset(self.indices), new_state,
+                      device=self.system._device)
 
     def to_gromacs_ndx(self, name: str) -> str:
         """Gromacs ndx group text (1-based; providers.rs as_gromacs_ndx_str)."""

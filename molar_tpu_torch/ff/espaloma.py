@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from .. import build
-from ..config import FLOAT, require_cuda
+from ..config import FLOAT, resolve_device
 from ..ops.perception import sssr_rings
 from .onnx_mini import Graph, load_model
 
@@ -316,7 +316,7 @@ def _use_torch() -> bool:
 
 def run_gnn_torch(features: np.ndarray, adj_mean: np.ndarray, device=None):
     """:class:`EspalomaGNN` on ``device`` (None: the card) -> numpy (e, s)."""
-    dev = require_cuda() if device is None else torch.device(device)
+    dev = resolve_device(device)
     gnn = _cached_gnn(dev)
     e, s = gnn(torch.from_numpy(np.ascontiguousarray(features, np.float32)).to(dev),
                torch.from_numpy(np.ascontiguousarray(adj_mean, np.float32)).to(dev))

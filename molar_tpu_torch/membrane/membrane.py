@@ -258,8 +258,17 @@ class Membrane:
     # -- per-frame pipeline --------------------------------------------------
 
     def compute(self) -> None:
-        sys = self.system
-        box = sys.state.require_box()
+        """One frame: :meth:`compute_geometry`, then each group folds it
+        into its statistics."""
+        self.compute_geometry()
+        for gr in self.groups.values():
+            gr.frame_update(self.lipids)
+
+    def compute_geometry(self) -> None:
+        """The per-frame pipeline on the current state (markers, patches,
+        normals, smoothing, order, curvature), written onto the lipids and
+        folded into no group: what :meth:`write_vmd_visualization` draws."""
+        self.system.state.require_box()
         for lip in self.lipids:
             lip.valid = True
         self._update_markers_all()
@@ -272,8 +281,6 @@ class Membrane:
             self._smooth()
         self._compute_order_all()
         self._smooth_curvature(self.options.n_shells_smoothing)
-        for gr in self.groups.values():
-            gr.frame_update(self.lipids)
 
     def finalize(self) -> None:
         for gr in self.groups.values():

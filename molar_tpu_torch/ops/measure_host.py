@@ -113,7 +113,12 @@ def inertia(
     pbc: PbcDims = PBC_FULL,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(moments ascending, axes as columns (right-handed), com)."""
-    t, c = inertia_tensor(coords, masses, box, pbc)
+    return inertia_axes(*inertia_tensor(coords, masses, box, pbc))
+
+
+def inertia_axes(t: np.ndarray, c: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The O(1) tail of :func:`inertia` from its (tensor, com): (moments
+    ascending, axes as columns (right-handed), com)."""
     vals, vecs = np.linalg.eigh(t)  # eigh returns ascending already
     axes = vecs.copy()
     axes[:, 2] = np.cross(axes[:, 0], axes[:, 1])  # enforce right-handedness
@@ -129,9 +134,14 @@ def principal_transform(
     """(R, t) affine taking the selection to its principal-axes frame about the
     COM (measure.rs:646-649): x -> R (x - com) + com with R = axes^-1."""
     _, axes, com = inertia(coords, masses, box, pbc)
+    return principal_from_axes(axes, com)
+
+
+def principal_from_axes(axes: np.ndarray, com: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The O(1) tail of :func:`principal_transform`: (R, t) from the
+    inertia axes and the COM."""
     r = np.linalg.inv(axes)
-    t = com - r @ com
-    return r, t
+    return r, com - r @ com
 
 
 def rmsd(coords1: np.ndarray, coords2: np.ndarray) -> float:
@@ -155,6 +165,12 @@ def rot_transform(
     """Kabsch rotation R minimizing sum m |R p1 - p2|^2 for centered inputs."""
     m = _weights(centered1, masses)
     cov = (m[:, None] * centered2.astype(np.float64)).T @ centered1.astype(np.float64)
+    return rotation_from_covariance(cov)
+
+
+def rotation_from_covariance(cov: np.ndarray) -> np.ndarray:
+    """The O(1) tail of :func:`rot_transform`: the proper rotation of the
+    3x3 covariance ``sum m p2 p1^T`` (SVD, reflection fix)."""
     u, s, vt = np.linalg.svd(cov)
     d = np.sign(np.linalg.det(u @ vt))
     fix = np.diag([1.0, 1.0, d])

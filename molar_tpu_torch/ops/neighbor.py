@@ -82,6 +82,10 @@ TGT_PAD = 1e17
 # into runs of frames that stay under it (2^25 f32 = 128 MiB a temporary).
 _BLOCK_ELEMS = 1 << 25
 
+#: ``n_src * n_tgt`` up to which a contact list takes the direct distance
+#: matrix (:func:`contact_pairs_dense`) rather than the cell grid.
+DENSE_LIMIT = 1 << 21
+
 
 def grid_dims(box_lengths, cutoff: float) -> tuple[int, int, int]:
     """Per-axis cell counts max(floor(extent / cutoff), 1). Host helper."""

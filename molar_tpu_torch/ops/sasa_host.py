@@ -196,6 +196,14 @@ class Sasa:
             total_volume(coords, vdw, probe, n_slices) if with_volume else None
         )
 
+    @classmethod
+    def from_values(cls, areas: np.ndarray, volume=None) -> "Sasa":
+        """The result object of areas (and a volume) computed elsewhere (the
+        card's form, :func:`molar_tpu_torch.core.sel_device.sasa`)."""
+        out = cls.__new__(cls)
+        out._areas, out._volume = areas, volume
+        return out
+
     def areas(self) -> np.ndarray:
         return self._areas
 

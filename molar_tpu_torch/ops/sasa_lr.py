@@ -417,7 +417,7 @@ class SasaSeries:
     def __init__(self, coords, vdw, probe: float = DEFAULT_PROBE, skin: float = 0.2,
                  n_slices: int = 64, cap: int = 96, block=None, extents=None, box=None,
                  device=None):
-        self.device = config.require_cuda() if device is None else torch.device(device)
+        self.device = config.resolve_device(device)
         if extents is None and box is not None:
             # A triclinic box falls back to host-Verlet mode: the device
             # grid assumes an axis-aligned cell.

@@ -39,15 +39,18 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import require_cuda
+from ..config import default_device
 from ..convert import transport_to_torch
 
 def _pool(devices) -> list:
     """The devices a mesh is taken from: ``devices``, or every CUDA device
-    (raises without one: no CPU fallback)."""
+    (raises without one: no CPU fallback), or the one device a caller made
+    the default (:func:`~molar_tpu_torch.config.set_default_device`)."""
     if devices is not None:
         return [torch.device(d) for d in devices]
-    require_cuda()
+    dev = default_device()
+    if dev.type != "cuda":
+        return [dev]
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 

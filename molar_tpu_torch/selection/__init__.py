@@ -13,7 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import require_cuda
+from ..config import resolve_device
 from . import nodes
 from .evaluator import EvalContext, SelectionEvalError
 from .parser import SelectionSyntaxError, parse
@@ -26,12 +26,6 @@ __all__ = [
     "parse",
     "nodes",
 ]
-
-#: Capacity tiers of :meth:`FrameSelection.eval_window`'s overflow retry:
-#: tier t multiplies every cap by 2^t (three tiers, as the headline's
-#: ``run_with_overflow_retry`` default).
-N_CAP_TIERS = 3
-
 
 class SelectionExpr:
     """A parsed selection expression, reusable across frames of one system."""
@@ -61,13 +55,14 @@ class SelectionExpr:
         return self._context(topology, state, subset).evaluate(self.ast)
 
     def compile_device(self, topology, state, cutoff_params=None, device=None,
-                       cap_scale: int = 1):
+                       cap_scale: int = 1, subset: Optional[np.ndarray] = None):
         """Compile to a window mask function ``(coords (B, N, 3), boxes,
-        invs) -> (masks (B, N), overflow (B,))`` on ``device`` (see
-        :mod:`.compiled`)."""
+        invs) -> (masks (B, N), overflow (B,))`` on ``device``, in the
+        context of ``subset`` as :meth:`apply` (see :mod:`.compiled`)."""
         from .compiled import compile_selection
 
-        return compile_selection(self.ast, topology, state, cutoff_params, device, cap_scale)
+        return compile_selection(self.ast, topology, state, cutoff_params, device, cap_scale,
+                                 subset)
 
     def __repr__(self) -> str:
         return f"SelectionExpr({self.text!r})"
@@ -84,30 +79,35 @@ class FrameSelection:
        velocities/forces — :class:`.compiled.CompileUnsupported`), evaluated
        per frame on the host.
 
-    ``device`` (the device tier's) is the first CUDA device unless the
-    caller names another (the tests pass ``"cpu"``); without a card a
-    state-dependent expression raises, it never falls back to the CPU.
+    ``device`` (the device tier's) resolves through
+    :func:`~molar_tpu_torch.config.resolve_device`: the card unless the
+    caller names another or made the CPU the default (the tests do); without
+    a card a state-dependent expression raises, it never falls back to the
+    CPU. ``subset`` (sorted global indices) evaluates every tier in a parent
+    selection's context, as :meth:`SelectionExpr.apply` does.
     """
 
-    def __init__(self, expr, topology, state0, cutoff_params=None, device=None):
+    def __init__(self, expr, topology, state0, cutoff_params=None, device=None, subset=None):
         if isinstance(expr, str):
             expr = SelectionExpr(expr)
         self.expr = expr
         self.topology = topology
         self.state0 = state0
         self.cutoff_params = cutoff_params
+        self.subset = subset
         self.static_idx: Optional[np.ndarray] = None
         self.compiled = None
         self.device = None
         self._tiers: dict = {}
         if not expr.is_state_dependent:
-            self.static_idx = expr.apply(topology, state0)
+            self.static_idx = expr.apply(topology, state0, subset)
             return
         from .compiled import CompileUnsupported
 
-        self.device = torch.device(device) if device is not None else require_cuda()
+        self.device = resolve_device(device)
         try:
-            self.compiled = expr.compile_device(topology, state0, cutoff_params, self.device)
+            self.compiled = expr.compile_device(topology, state0, cutoff_params, self.device,
+                                                subset=subset)
         except CompileUnsupported:
             self.compiled = None  # host tier
         else:
@@ -120,10 +120,13 @@ class FrameSelection:
         return "device" if self.compiled is not None else "host"
 
     def _compiled_at(self, tier: int):
+        from .compiled import CAP_TIERS
+
         fn = self._tiers.get(tier)
         if fn is None:
             fn = self._tiers[tier] = self.expr.compile_device(
-                self.topology, self.state0, self.cutoff_params, self.device, cap_scale=2**tier)
+                self.topology, self.state0, self.cutoff_params, self.device,
+                cap_scale=CAP_TIERS[tier], subset=self.subset)
         return fn
 
     def eval_frame(self, state) -> np.ndarray:
@@ -135,7 +138,7 @@ class FrameSelection:
             boxes = None if box is None else box.matrix[None]
             invs = None if box is None else box.inv[None]
             return np.flatnonzero(self.eval_window(state.coords[None], boxes, invs)[0])
-        return self.expr.apply(self.topology, state)
+        return self.expr.apply(self.topology, state, self.subset)
 
     def eval_window(self, coords, boxes, invs) -> np.ndarray:
         """(B, n_atoms) boolean masks for a window of frames (numpy arrays or
@@ -143,9 +146,8 @@ class FrameSelection:
 
         Device tier: the compiled window function, masks and overflow flags
         read back in one copy; a window whose flags are set is run again at
-        the next capacity tier (caps x2), up to :data:`N_CAP_TIERS` tiers,
-        after which :class:`~molar_tpu_torch.tasks.trajectory.AnalysisError`
-        is raised. Host tier: per-frame re-evaluation. Static tier: the
+        the next capacity tier (:func:`.compiled.over_tiers`), after which
+        :class:`~molar_tpu_torch.tasks.trajectory.AnalysisError` is raised. Host tier: per-frame re-evaluation. Static tier: the
         constant mask broadcast.
         """
         n = self.topology.n_atoms
@@ -155,19 +157,20 @@ class FrameSelection:
             return np.broadcast_to(m, (len(coords), n)).copy()
         if self.compiled is not None:
             from ..tasks.trajectory import AnalysisError
+            from .compiled import over_tiers
 
             def dev(a):
                 return None if a is None else torch.as_tensor(a, dtype=torch.float32).to(
                     self.device)
 
             c, b, i = dev(coords), dev(boxes), dev(invs)
-            for tier in range(N_CAP_TIERS):
+
+            def attempt(tier, _scale):
                 masks, overflow = self._compiled_at(tier)(c, b, i)
                 out = torch.cat([masks, overflow[:, None]], dim=1).cpu().numpy()
-                if not out[:, n].any():
-                    return out[:, :n]
-            raise AnalysisError(f"selection {self.expr.text!r} still overflows at the largest "
-                                f"capacity tier {N_CAP_TIERS - 1}")
+                return None if out[:, n].any() else out[:, :n]
+
+            return over_tiers(attempt, f"selection {self.expr.text!r}", AnalysisError)
         from ..core.pbc import PeriodicBox
         from ..core.state import State
 
@@ -175,7 +178,8 @@ class FrameSelection:
         out = np.zeros((coords.shape[0], n), dtype=bool)
         for k in range(coords.shape[0]):
             box = None if boxes is None else PeriodicBox(boxes[k])
-            out[k, self.expr.apply(self.topology, State(coords=coords[k], box=box))] = True
+            out[k, self.expr.apply(self.topology, State(coords=coords[k], box=box),
+                                   self.subset)] = True
         return out
 
 

@@ -51,7 +51,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..config import require_cuda
+from ..config import resolve_device
 from ..core.periodic_table import ELEMENT_VDW_NM, NUM_ELEMENTS
 from ..ops import neighbor
 from . import nodes as N
@@ -63,9 +63,14 @@ from .evaluator import EvalContext
 _IJK = np.array([(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)
                  if (i, j, k) != (0, 0, 0)], dtype=np.float32)
 
-# Margin (nm) of a non-periodic window box beyond the coordinate span, so
-# that every fractional coordinate stays below 1.
-_SPAN_PAD = 1e-3
+#: Margin (nm) of a non-periodic window box beyond the coordinate span, so
+#: that every fractional coordinate stays below 1.
+SPAN_PAD = 1e-3
+
+#: Capacity scales of a search's overflow retry (:func:`over_tiers`): a
+#: search whose flag is set runs again at the next (three tiers, as the
+#: headline's ``run_with_overflow_retry`` default).
+CAP_TIERS = (1, 2, 4)
 
 
 class CompileUnsupported(NotImplementedError):
@@ -119,18 +124,22 @@ def compile_selection(
     cutoff_params: Optional[dict] = None,
     device=None,
     cap_scale: int = 1,
+    subset: Optional[np.ndarray] = None,
 ) -> CompiledSelection:
     """Compile an AST against a topology and a representative state (which
-    sizes the cell grids and caps of ``within`` nodes) for ``device`` (the
-    first CUDA device when None).
+    sizes the cell grids and caps of ``within`` nodes) for ``device``
+    (None: :func:`~molar_tpu_torch.config.resolve_device`).
 
     ``cutoff_params``: optional overrides {"cap": int, "tgt_cap": int,
     "max_tgt_cells": int} of the searches. ``cap_scale`` multiplies every
-    cap (the overflow retry's tiers).
+    cap (the overflow retry's tiers). ``subset`` (sorted global indices)
+    evaluates in a parent selection's context, as the host evaluator's
+    ``global_subset``: the static masks and the ``within`` targets are taken
+    inside it, and the result is cut to it.
     """
-    device = torch.device(device) if device is not None else require_cuda()
+    device = resolve_device(device)
     n = topology.n_atoms
-    host_ctx = EvalContext(topology, state)
+    host_ctx = EvalContext(topology, state, subset)
     params = {"cap": None, "tgt_cap": None, "max_tgt_cells": None}
     params.update(cutoff_params or {})
     uses_box = [False]
@@ -234,22 +243,6 @@ def compile_selection(
 
         return f
 
-    def auto_cap(coords0, idx, dims, pbc) -> int:
-        """Max per-cell occupancy of ``coords0[idx]`` (the representative
-        frame) on the grid the search bins in, + 50% headroom (a clobbered
-        fixed-capacity table corrupts results in BOTH directions, so caps
-        must be sized from the data), times ``cap_scale``."""
-        pts = coords0[idx]
-        lo = coords0.min(axis=0)
-        frac = (pts - lo) / (coords0.max(axis=0) - lo + _SPAN_PAD)
-        if any(pbc):
-            wrapped = pts @ state.box.inv.T
-            frac = np.where(pbc, wrapped - np.floor(wrapped), frac)
-        cell = np.minimum((frac * dims).astype(np.int64), np.asarray(dims) - 1)
-        flat = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
-        peak = int(np.bincount(flat).max()) if len(flat) else 1
-        return max(int(peak * 1.5) + 4, 8) * int(cap_scale)
-
     def build_within(p: N.WithinParams, target, inner_mask, is_point=False):
         pbc = p.pbc.as_tuple()
         tric = p.pbc.any and state.box is not None and state.box.is_triclinic
@@ -262,25 +255,13 @@ def compile_selection(
             return lambda c, b, i: (nothing, None)
         n_ghost[0] += not tric
         coords0 = np.concatenate([state.coords, target]) if is_point else state.coords
-        # Periodic axes: the box's grid. Non-periodic ones: the coordinate
-        # span's, binned in the frame's window box (:func:`_window_box`).
-        span_np = coords0.max(axis=0) - coords0.min(axis=0)
-        dims = neighbor.grid_dims(span_np + _SPAN_PAD, p.cutoff)
-        if p.pbc.any:
-            uses_box[0] = True
-            dims = tuple(d if per else s for d, s, per in
-                         zip(neighbor.grid_dims_for(state.box, p.cutoff), dims, pbc))
-        span0 = None if p.pbc.all else const(span_np.astype(np.float32), torch.float32)
-        if params["cap"]:
-            cap = params["cap"] * cap_scale
-        else:
-            cap = auto_cap(coords0, np.arange(n), dims, pbc)
-        if is_point:
-            tcap = 8 * cap_scale
-        elif params["tgt_cap"]:
-            tcap = params["tgt_cap"] * cap_scale
-        else:
-            tcap = auto_cap(coords0, np.asarray(target), dims, pbc)
+        dims, span_np = search_grid(coords0, p.cutoff, state.box, pbc)
+        uses_box[0] |= p.pbc.any
+        span0 = None if p.pbc.all else const(span_np, torch.float32)
+        sets = [np.arange(n)] + ([] if is_point else [np.asarray(target)])
+        caps = search_caps(coords0, dims, pbc, state.box, *sets)
+        cap = (params["cap"] or caps[0]) * cap_scale
+        tcap = 8 * cap_scale if is_point else (params["tgt_cap"] or caps[1]) * cap_scale
         mtc = params["max_tgt_cells"]
         include = p.include_inner and inner_mask is not None
         inner_t = const(inner_mask, torch.bool) if include else None
@@ -297,9 +278,9 @@ def compile_selection(
             if is_point:
                 c = torch.cat([c, point.expand(c.shape[0], 1, 3)], dim=1)
             if span0 is not None:
-                c, b, i = _window_box(c, b, i, span0, pbc)
+                c, b, i = window_box(c, b, i, span0, pbc)
             if tric:
-                mask, ofl = _within_corrections(c, src, tgt, p.cutoff, b, i, ijk, dims, cap,
+                mask, ofl = within_corrections(c, src, tgt, p.cutoff, b, i, ijk, dims, cap,
                                                 tcap, pbc, mtc)
             else:
                 mask, ofl = neighbor.within_mask_window(c, src, tgt, p.cutoff, b, i, dims,
@@ -311,17 +292,76 @@ def compile_selection(
         return f
 
     fn = build(ast)
+    if subset is not None:
+        # Every node is pointwise over the atoms, so the host evaluator's
+        # restriction to the current subset at each node is this one cut.
+        domain = const(host_ctx.global_mask, torch.bool)
+        inner_fn = fn
+
+        def fn(c, b, i):
+            m, o = inner_fn(c, b, i)
+            return m & domain, o
     return CompiledSelection(fn, n, uses_box[0], n_ghost[0], device)
 
 
-def _window_box(c, boxes, invs, span0, pbc):
+def search_grid(coords0, cutoff: float, box, pbc) -> tuple[tuple[int, int, int], np.ndarray]:
+    """The cell grid a ``within`` search over the rows ``coords0`` bins in,
+    and their span (3,) float32: on a periodic axis the box's
+    (:func:`~molar_tpu_torch.ops.neighbor.grid_dims_for`), on a non-periodic
+    one the span's plus :data:`SPAN_PAD`, binned in :func:`window_box`."""
+    span = coords0.max(axis=0) - coords0.min(axis=0)
+    dims = neighbor.grid_dims(span + SPAN_PAD, cutoff)
+    if any(pbc):
+        dims = tuple(d if per else s for d, s, per in
+                     zip(neighbor.grid_dims_for(box, cutoff), dims, pbc))
+    return dims, span.astype(np.float32)
+
+
+def search_caps(coords0, dims, pbc, box, *index_sets) -> tuple[int, ...]:
+    """For each index array of ``index_sets``: the max per-cell occupancy
+    of those rows of ``coords0`` on :func:`search_grid`'s grid (the
+    periodic axes wrapped in ``box``, the others in the span of every row),
+    + 50% headroom: a clobbered fixed-capacity table corrupts results in
+    BOTH directions, so caps are sized from the data. One pass over the
+    rows for every set."""
+    frac = None
+    if not all(pbc):
+        lo = coords0.min(axis=0)
+        frac = (coords0 - lo) / (coords0.max(axis=0) - lo + SPAN_PAD)
+    if any(pbc):
+        wrapped = coords0 @ box.inv.T
+        wrapped = wrapped - np.floor(wrapped)
+        frac = wrapped if frac is None else np.where(pbc, wrapped, frac)
+    cell = np.minimum((frac * dims).astype(np.int64), np.asarray(dims) - 1)
+    flat = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
+    caps = []
+    for idx in index_sets:
+        peak = int(np.bincount(flat[idx]).max()) if len(idx) else 1
+        caps.append(max(int(peak * 1.5) + 4, 8))
+    return tuple(caps)
+
+
+def over_tiers(attempt: Callable, what: str, error=RuntimeError):
+    """``attempt(tier, scale)`` at each of :data:`CAP_TIERS` until it
+    returns a result (None: its search's overflow flag was set, and nothing
+    of it may be read) -> that result; ``error`` once the last tier
+    overflows too."""
+    for tier, scale in enumerate(CAP_TIERS):
+        out = attempt(tier, scale)
+        if out is not None:
+            return out
+    raise error(f"{what} still overflows at the largest capacity tier {len(CAP_TIERS) - 1} "
+                f"(caps x{CAP_TIERS[-1]})")
+
+
+def window_box(c, boxes, invs, span0, pbc):
     """The frame boxes of a search with non-periodic axes (an orthorhombic
     box, or none): on each non-periodic axis the side ``max(span_f, span_0)
     + pad`` and the coordinates moved by the frame's minimum, so that no
     atom wraps and no cell is thinner than the cutoff; the periodic axes
     keep the frame's box. All on the device -> (coords, boxes, invs)."""
     lo = c.amin(dim=1)
-    side = torch.maximum(c.amax(dim=1) - lo, span0) + _SPAN_PAD
+    side = torch.maximum(c.amax(dim=1) - lo, span0) + SPAN_PAD
     if not any(pbc):
         return c - lo[:, None, :], torch.diag_embed(side), torch.diag_embed(torch.reciprocal(side))
     boxes, invs = boxes.clone(), invs.clone()
@@ -334,8 +374,8 @@ def _window_box(c, boxes, invs, span0, pbc):
     return c - shift[:, None, :], boxes, invs
 
 
-def _within_corrections(c, src, tgt, cutoff, boxes, invs, ijk, dims, cap, tgt_cap, pbc,
-                        max_tgt_cells):
+def within_corrections(c, src, tgt, cutoff, boxes, invs, ijk, dims, cap, tgt_cap, pbc,
+                       max_tgt_cells):
     """The correction route of a skewed box, frame by frame: the 26
     candidates ``i*a + j*b + k*c`` of each frame's box, elementwise."""
     corr = (ijk[None, :, 0:1] * boxes[:, None, :, 0] + ijk[None, :, 1:2] * boxes[:, None, :, 1]

@@ -60,5 +60,5 @@ def engine_device(engine: str) -> torch.device:
     if engine in ("host", "cpu"):
         return cpu_device()
     if engine == "device":
-        return config.require_cuda()
+        return config.default_device()
     raise ValueError(f"unknown engine {engine!r} (host/cpu/device)")

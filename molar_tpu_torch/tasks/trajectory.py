@@ -729,7 +729,7 @@ class WindowAnalysisTask:
 
     def run(self, argv: Optional[Sequence[str]] = None, device=None, mesh=None) -> int:
         """Parse ``argv``, build and stream -> the number of frames read."""
-        from ..config import require_cuda
+        from ..config import resolve_device
         from ..core.system import System
 
         t_start = time.perf_counter()
@@ -739,7 +739,7 @@ class WindowAnalysisTask:
         if args.mesh < 0:
             raise ValueError(f"--mesh takes a device count, got {args.mesh}")
         self.args = args
-        self.device = torch.device(device) if device is not None else require_cuda()
+        self.device = resolve_device(device)
         if mesh is None and args.mesh:
             mesh = [self.device] * args.mesh if device is not None else frame_mesh(args.mesh)
         runner = as_runner(mesh)
@@ -747,7 +747,7 @@ class WindowAnalysisTask:
             self.device = runner.device
         structure, *trajectories = args.files
         paths = trajectories or [structure]
-        system = System.from_file(structure)
+        system = System.from_file(structure, device=self.device)
         window_fn = self.build(system)
         reader = TrajectoryReader(paths, begin=FrameSpec.parse(args.begin),
                                   end=FrameSpec.parse(args.end), skip=args.skip)
@@ -796,7 +796,10 @@ class AnalysisContext:
 
 
 class AnalysisTask:
-    """Reference-compatible per-frame analysis harness, on the host.
+    """Reference-compatible per-frame analysis harness: the frames are read
+    and swapped into the system on the host, and the task's ``System``
+    computes on the device :meth:`run` is given (None: the card), so every
+    ``Sel`` call of the hooks reaches it.
 
     Subclass and implement ``pre_process`` / ``process_frame`` /
     ``post_process`` (the Python-binding hook names,
@@ -850,16 +853,21 @@ class AnalysisTask:
         else:
             fn()
 
-    def run(self, argv: Optional[Sequence[str]] = None) -> AnalysisContext:
+    def run(self, argv: Optional[Sequence[str]] = None, device=None) -> AnalysisContext:
         """Parse ``argv``, stream the frames through the hooks -> the
-        context (``consumed_frames`` counts the frames processed)."""
+        context (``consumed_frames`` counts the frames processed). The
+        task's system (``self.src``) computes on ``device``, resolved here
+        (:func:`~molar_tpu_torch.config.resolve_device`: None is the card,
+        which raises where there is none)."""
+        from ..config import resolve_device
         from ..core.system import System
 
+        self.device = resolve_device(device)
         parser = build_arg_parser(self.task_name)
         self.add_args(parser)
         args = parser.parse_args(argv)
         structure, *trajectories = args.files
-        system = System.from_file(structure)
+        system = System.from_file(structure, device=self.device)
         self.src = system
         self.args = args
         reader = TrajectoryReader(trajectories or [structure], begin=FrameSpec.parse(args.begin),

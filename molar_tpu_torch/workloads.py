@@ -43,7 +43,7 @@ from .membrane import MembraneDevice, MembraneOptions, MembraneSpec, SpeciesTemp
 from .membrane.device import to_numpy
 from .ops import sasa_lr
 from .ops.measure import dense_segment_com_gyration, dense_segment_sum, fit_rmsd
-from .ops.neighbor import contact_pairs_dense_window, contact_pairs_window
+from .ops.neighbor import DENSE_LIMIT, contact_pairs_dense_window, contact_pairs_window
 from .tasks import trajectory
 from .tasks.trajectory import (
     AnalysisError, TrajectoryReader, WindowPipeline, auto_window, decode_window_coords,
@@ -57,7 +57,6 @@ WORKLOADS = {"ca_rmsd": "ca_rmsd", "com_splits": "com_gyr", "contacts": "contact
 CUTOFF = 0.4          # nm, the contact distance
 MAX_PAIRS = 1 << 14   # pair-list capacity a frame
 GRID_CAP = 64         # targets a cell, when the cell grid is used
-DENSE_LIMIT = 1 << 21  # n_src * n_tgt up to which the dense matrix is used
 N_LIGAND = 50
 SASA_SLICES = 32      # z-slices an atom of the SASA workload (and of the sidecar)
 SASA_TIERS = 3        # capacity tiers of the SASA workload's lists
@@ -531,7 +530,7 @@ class _BoxChecked:
             yield window
 
 
-def _stream_membrane(dev: MembraneDevice, reader, window: int):
+def stream_membrane(dev: MembraneDevice, reader, window: int):
     """``reader``'s windows of ``dev``'s rows through ``dev``, each folded
     into its group statistics before the next is read -> (frames, the
     windows' outputs as numpy)."""
@@ -547,6 +546,19 @@ def _stream_membrane(dev: MembraneDevice, reader, window: int):
     return frames, outs
 
 
+def last_frame_geometry(membrane, reader) -> None:
+    """``reader``'s last frame through the host pipeline's geometry
+    (``Membrane.compute_geometry``, folded into no group): after a card run
+    ``membrane.write_vmd_visualization`` then draws what the host route's
+    last frame draws. The frames are decoded again on the host."""
+    last = None
+    for _, last in reader.iter_states():
+        pass
+    if last is not None:
+        membrane.system.set_state(last)
+        membrane.compute_geometry()
+
+
 def run_membrane(dev: MembraneDevice, xtc: str, window: int = 0):
     """The membrane workload through ``dev``: ``xtc``'s windows of
     ``window`` frames (:data:`MEMBRANE_WINDOW` when 0) of the spec's rows;
@@ -554,7 +566,7 @@ def run_membrane(dev: MembraneDevice, xtc: str, window: int = 0):
     ``dev``'s group statistics before the next is read. -> (frames,
     seconds, check scalars)."""
     t0 = time.perf_counter()
-    frames, outs = _stream_membrane(dev, TrajectoryReader([xtc]), window or MEMBRANE_WINDOW)
+    frames, outs = stream_membrane(dev, TrajectoryReader([xtc]), window or MEMBRANE_WINDOW)
     return frames, time.perf_counter() - t0, _checks("membrane", outs, dev.spec)
 
 
@@ -571,7 +583,7 @@ def run_membrane_shards(devs, xtc: str, window: int = 0):
     frames, outs = 0, []
     for k, dev in enumerate(devs):
         reader = TrajectoryReader([xtc], begin=k * per, end=(k + 1) * per - 1)
-        n, o = _stream_membrane(dev, reader, window or MEMBRANE_WINDOW)
+        n, o = stream_membrane(dev, reader, window or MEMBRANE_WINDOW)
         frames += n
         outs += o
     for dev in devs[1:]:

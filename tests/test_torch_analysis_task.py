@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from molar_tpu.tasks import trajectory as jtraj
+from molar_tpu_torch.config import set_default_device
 import molar_tpu_torch as mt
 import molar_tpu_torch.io as mio
 from molar_tpu_torch.tasks import trajectory as ttraj
@@ -31,9 +32,14 @@ N1, N2 = 6, 5
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
+    """One torch thread for the module (the test workers share the cores),
+    and the CPU as the device of ``device=None`` (the port's entry points
+    take the card unless asked for the CPU); both restored after it."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
+    old = set_default_device("cpu")
     yield
+    set_default_device(old)
     torch.set_num_threads(n)
 
 

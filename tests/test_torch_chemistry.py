@@ -32,6 +32,7 @@ from molar_tpu.ff import gaff as ref_gaff
 from molar_tpu.ops import perception as ref_perception
 from molar_tpu.ops import surface as ref_surface
 
+from molar_tpu_torch.config import set_default_device
 import molar_tpu_torch as mt
 from molar_tpu_torch.ff import FFError, apply_ff, gaff, gaff_types, parse_def
 from molar_tpu_torch.ops import perception, surface
@@ -45,9 +46,14 @@ N_LIGANDS = 24
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
+    """One torch thread for the module (the test workers share the cores),
+    and the CPU as the device of ``device=None`` (the port's entry points
+    take the card unless asked for the CPU); both restored after it."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
+    old = set_default_device("cpu")
     yield
+    set_default_device(old)
     torch.set_num_threads(n)
 
 

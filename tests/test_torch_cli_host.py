@@ -9,6 +9,10 @@ every file written is byte-equal. The errors: overlapping selections, no
 selection, a solute without a box, no solvent file, a solute that leaves no
 solvent, a structure without TIP3 waters (the empty selection's error,
 raised alike), a trajectory alone (no topology) and one that cannot be read.
+The port's ``solvate`` and ``membrane`` run here with ``--device cpu``
+(their host route); their card route, driven on CPU tensors by replacing
+the route test, writes the same solvated files and membrane files within
+``workloads.MEMBRANE_TOL`` of the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -25,18 +29,25 @@ from molar_tpu.core import Atom as RefAtom
 from molar_tpu.core import State as RefState
 from molar_tpu.core import Topology as RefTopology
 
-from molar_tpu_torch import cli
+from molar_tpu_torch.config import set_default_device
+from molar_tpu_torch import cli, config
 
 from test_cli import _make_water_box
 from test_membrane import TOML, make_bilayer
+from torch_scenes import membrane_file_diffs
 from torch_structures import scene_pdb
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
+    """One torch thread for the module (the test workers share the cores),
+    and the CPU as the device of ``device=None`` (the port's entry points
+    take the card unless asked for the CPU); both restored after it."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
+    old = set_default_device("cpu")
     yield
+    set_default_device(old)
     torch.set_num_threads(n)
 
 
@@ -97,12 +108,16 @@ def inputs(tmp_path_factory):
 
 def run_both(capsys, tmp_path, argv):
     """Both command lines with ``{in}`` / ``{out}`` filled in, each into its
-    own output directory -> (ref, mine): (rc, stdout, error lines, files)."""
+    own output directory -> (ref, mine): (rc, stdout, error lines, files).
+    The port's ``solvate`` and ``membrane`` get ``--device cpu``: their host
+    route, which the JAX CLI's output is held to."""
     results = []
     for tag, main in (("ref", ref_cli.main), ("mine", cli.main)):
         out = tmp_path / tag
         out.mkdir(exist_ok=True)
         args = [a.replace("{out}", str(out)) for a in argv]
+        if tag == "mine" and args[0] in ("solvate", "membrane"):
+            args += ["--device", "cpu"]
         try:
             rc = main(args)
         except Exception as e:  # the same exception in both is the same error
@@ -173,7 +188,7 @@ def test_membrane_subcommand_equals_the_reference(inputs, tmp_path, capsys):
         out = tmp_path / tag
         out.mkdir(exist_ok=True)
         args = [a.replace("{out}", str(out)).replace("{params}", str(tmp_path / f"{tag}.toml"))
-                for a in argv]
+                for a in argv] + (["--device", "cpu"] if tag == "mine" else [])
         assert main(args) == 0
         text = capsys.readouterr().out.replace(str(out), "OUT")
         files = {str(p.relative_to(out)): p.read_bytes() for p in sorted(out.rglob("*"))
@@ -183,6 +198,41 @@ def test_membrane_subcommand_equals_the_reference(inputs, tmp_path, capsys):
     assert "membrane analysis over 3 frames" in got[1][0]
     assert {"vis.tcl", os.path.join("stats", "stats_upper.dat"),
             os.path.join("stats", "order_lower_LIP.dat")} <= set(got[1][1])
+
+
+@pytest.mark.parametrize("case", ["solvate", "solvate_exclude"])
+def test_solvate_card_route_equals_the_reference(inputs, tmp_path, capsys, monkeypatch, case):
+    """The overlap search through ``core/sel_device.search_pairs`` writes the
+    JAX CLI's bytes."""
+    monkeypatch.setattr(config, "on_host", lambda device: False)
+    argv = argv_of(inputs, *CASES[case])
+    out = {}
+    for tag, main in (("ref", ref_cli.main), ("mine", cli.main)):
+        (tmp_path / tag).mkdir()
+        assert main([a.replace("{out}", str(tmp_path / tag)) for a in argv]) == 0
+        out[tag] = {p.name: p.read_bytes() for p in (tmp_path / tag).iterdir()}
+    assert out["mine"] == out["ref"] and out["mine"]
+
+
+def test_membrane_card_route_is_within_the_bars(inputs, tmp_path, capsys, monkeypatch):
+    """``MembraneDevice(membrane)`` over the windows (on CPU tensors): the
+    same messages and files, their values within ``MEMBRANE_TOL`` of the
+    JAX CLI's; ``--vmd``'s drawing of the last frame byte-equal to it."""
+    monkeypatch.setattr(config, "on_host", lambda device: False)
+    text, vmd = {}, {}
+    for tag, main in (("ref", ref_cli.main), ("mine", cli.main)):
+        (tmp_path / f"{tag}.toml").write_text(
+            TOML.format(out=str(tmp_path / tag)).replace("name G", "name C1"))
+        vis = tmp_path / f"{tag}.tcl"
+        assert main(["membrane", "-f", str(inputs / "bilayer.gro"), str(inputs / "bilayer.xtc"),
+                     "-p", str(tmp_path / f"{tag}.toml"), "--log", "0",
+                     "--vmd", str(vis)]) == 0
+        text[tag] = capsys.readouterr().out.replace(str(tmp_path / tag), "OUT")
+        vmd[tag] = vis.read_bytes()
+    assert text["mine"] == text["ref"] and "over 3 frames" in text["mine"]
+    worst = membrane_file_diffs(str(tmp_path / "ref"), str(tmp_path / "mine"))
+    assert all(v <= 1.0 for v in worst.values()), worst
+    assert vmd["mine"] == vmd["ref"] and vmd["mine"]
 
 
 def test_unreadable_trajectory_and_help(inputs, tmp_path, capsys):

@@ -39,6 +39,7 @@ from molar_tpu.io.trr import TrrHandler as RefTrr
 from molar_tpu.selection import FrameSelection as RefFrameSelection
 from molar_tpu.tasks.trajectory import WindowAnalysisTask as RefTask
 
+from molar_tpu_torch.config import set_default_device
 import molar_tpu_torch as mt
 from molar_tpu_torch import io as mio
 from molar_tpu_torch.core.pbc import PeriodicBox
@@ -64,9 +65,14 @@ TEXT = "name OW and within 0.5 pbc of protein"
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
+    """One torch thread for the module (the test workers share the cores),
+    and the CPU as the device of ``device=None`` (the port's entry points
+    take the card unless asked for the CPU); both restored after it."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
+    old = set_default_device("cpu")
     yield
+    set_default_device(old)
     torch.set_num_threads(n)
 
 

@@ -22,6 +22,7 @@ import torch
 import molar_tpu
 import molar_tpu.io as ref_io
 from molar_tpu.io.ndx import NdxFile as RefNdx
+from molar_tpu_torch.config import set_default_device
 import molar_tpu_torch as mt
 import molar_tpu_torch.io as mio
 from molar_tpu_torch.io.base import EmptyFileError, FileIoError
@@ -35,9 +36,14 @@ TRIC = molar_tpu.PeriodicBox.from_vectors_angles(4.0, 4.2, 3.9, 75.0, 82.0, 68.0
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
+    """One torch thread for the module (the test workers share the cores),
+    and the CPU as the device of ``device=None`` (the port's entry points
+    take the card unless asked for the CPU); both restored after it."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
+    old = set_default_device("cpu")
     yield
+    set_default_device(old)
     torch.set_num_threads(n)
 
 

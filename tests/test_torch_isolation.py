@@ -287,7 +287,7 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
     with tempfile.TemporaryDirectory() as d:
         pdb, xtc = os.path.join(d, "conf.pdb"), os.path.join(d, "traj.xtc")
         open(pdb, "w").write(scene_pdb(seed=1))
-        usys = mt.System.from_file(pdb)
+        usys = mt.System.from_file(pdb, device="cpu")
         ca = usys("protein and name CA")
         assert isinstance(ca, mt.Sel) and len(ca) == 32 and ca.com().shape == (3,)
         assert ca.gyration() > 0 and ca.gyration(mt.PBC_FULL) > 0
@@ -296,6 +296,15 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
         assert np.array_equal(near.indices, usys().within_of(
             0.5, usys("resname LIG"), mt.PBC_FULL).indices) and len(near) > 12
         assert usys("resname LIG").sasa().total_area() > 0
+        # The card's forms of the same calls, on CPU tensors.
+        from molar_tpu_torch.core import sel_device
+        lig = usys("resname LIG")
+        assert np.array_equal(near.indices, sel_device.within(
+            0.5, usys.state.coords, usys().indices, lig.indices, usys.box, mt.PBC_FULL, "cpu"))
+        assert abs(sel_device.gyration(ca.coords, ca.masses, None, mt.PBC_NONE, "cpu")
+                   - ca.gyration()) < 1e-9
+        areas = sel_device.sasa(lig.coords, usys.topology.vdw()[lig.indices], 0.14, 32, "cpu")
+        assert abs(areas.sum() - lig.sasa(n_slices=32).total_area()) < 1e-6
         for ext in ("gro", "xyz"):
             usys.save(os.path.join(d, "a." + ext))
             assert mt.System.from_file(os.path.join(d, "a." + ext)).n_atoms == usys.n_atoms
@@ -314,9 +323,10 @@ _RUN_WITHOUT_JAX = textwrap.dedent(
                 self.rg.append(self.src("protein").gyration())
 
         rg = Rg()
-        assert rg.run(["-f", pdb, xtc, "--log", "0"]).consumed_frames == 3 and len(rg.rg) == 3
+        assert rg.run(["-f", pdb, xtc, "--log", "0"], device="cpu").consumed_frames == 3
+        assert len(rg.rg) == 3
     for name in ("io", "io.base", "io.pdb", "io.xyz", "io.ndx", "ops.dssp", "ops.dss",
-                 "ops.sasa_host", "ops.seq_align"):
+                 "ops.sasa_host", "ops.seq_align", "core.sel_device"):
         assert "molar_tpu_torch." + name in sys.modules, name
     # The rest of the host half: a TRR, a NetCDF and an SDF written and read
     # back, perception and GAFF typing, a mesh, a TPR from the pure decoder, a

@@ -30,6 +30,7 @@ from molar_tpu.membrane import membrane as ref_membrane
 from molar_tpu.membrane.vmd_visual import Histogram1D as RefHistogram
 from molar_tpu.ops import voronoi as ref_voronoi
 
+from molar_tpu_torch.config import set_default_device
 from molar_tpu_torch.membrane import (
     LipidGroup, Membrane, MembraneDevice, MembraneError, MembraneSpec, get_quad_coefs,
     split_leaflets,
@@ -60,9 +61,14 @@ SCENES = {
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
+    """One torch thread for the module (the test workers share the cores),
+    and the CPU as the device of ``device=None`` (the port's entry points
+    take the card unless asked for the CPU); both restored after it."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
+    old = set_default_device("cpu")
     yield
+    set_default_device(old)
     torch.set_num_threads(n)
 
 

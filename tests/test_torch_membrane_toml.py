@@ -27,6 +27,7 @@ from molar_tpu.membrane import Membrane
 from molar_tpu.membrane import MembraneError as RefMembraneError
 from molar_tpu.membrane.device import MembraneDevice as RefDevice
 
+from molar_tpu_torch.config import set_default_device
 from molar_tpu_torch import convert
 from molar_tpu_torch import workloads as wl
 from molar_tpu_torch.core.pbc import PeriodicBox
@@ -47,10 +48,14 @@ NO_GROUPS = TOML.replace('groups = ["all"]\n', "")
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
-    """Many small torch ops; one thread for this module, restored after it."""
+    """One torch thread for the module (the test workers share the cores),
+    and the CPU as the device of ``device=None`` (the port's entry points
+    take the card unless asked for the CPU); both restored after it."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
+    old = set_default_device("cpu")
     yield
+    set_default_device(old)
     torch.set_num_threads(n)
 
 

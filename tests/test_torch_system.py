@@ -22,6 +22,7 @@ import molar_tpu
 from molar_tpu.core.atom import Atom as RefAtom
 from molar_tpu.ops import measure_host as ref_measure
 from molar_tpu.selection import SelectionSyntaxError as RefSyntaxError
+from molar_tpu_torch.config import set_default_device
 import molar_tpu_torch as mt
 from molar_tpu_torch.core.atom import Atom
 from molar_tpu_torch.ops import measure_host
@@ -36,10 +37,13 @@ TRIC = molar_tpu.PeriodicBox.from_vectors_angles(4.0, 4.2, 3.9, 75.0, 82.0, 68.0
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     """One torch thread for the module (the test workers share the cores),
-    restored after it."""
+    and the CPU as the device of ``device=None`` (the port's entry points
+    take the card unless asked for the CPU); both restored after it."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
+    old = set_default_device("cpu")
     yield
+    set_default_device(old)
     torch.set_num_threads(n)
 
 

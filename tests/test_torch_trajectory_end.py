@@ -20,6 +20,7 @@ import torch
 
 from molar_tpu.tasks.trajectory import FrameSpec as RefSpec
 from molar_tpu.tasks.trajectory import TrajectoryReader as RefReader
+from molar_tpu_torch.config import set_default_device
 from molar_tpu_torch import headline
 from molar_tpu_torch.core.pbc import PeriodicBox
 from molar_tpu_torch.core.state import State
@@ -41,10 +42,14 @@ CASES = {
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
-    """Many small torch ops; one thread for this module, restored after it."""
+    """One torch thread for the module (the test workers share the cores),
+    and the CPU as the device of ``device=None`` (the port's entry points
+    take the card unless asked for the CPU); both restored after it."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
+    old = set_default_device("cpu")
     yield
+    set_default_device(old)
     torch.set_num_threads(n)
 
 

@@ -15,6 +15,8 @@ their float64 ground truth over the lattice images. Imports neither JAX nor
 pytest, so the smoke can use them on the card.
 """
 
+import os
+
 import numpy as np
 
 EPS = 2.0**-10
@@ -347,3 +349,169 @@ def membrane_group_diffs(want: dict, got: dict) -> dict:
                     r = float((np.abs(g - w) / (atol + rtol * np.abs(w))).max(initial=0.0))
                     worst[key] = max(worst[key], r)
     return worst
+
+
+def _membrane_file_values(path: str) -> dict:
+    """``check_*`` key -> the values a membrane output file holds: the mean
+    area and mean curvature of each species line of a ``stats_*.dat``, the
+    mean order of each carbon line of an ``order_*.dat``."""
+    out = {"check_area": [], "check_mean": [], "check_order": []}
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("#"):
+                continue
+            cols = line.split()
+            if os.path.basename(path).startswith("stats_"):
+                out["check_area"].append(float(cols[2].split("±")[0]))
+                out["check_mean"].append(float(cols[4].split("±")[0]))
+            else:
+                out["check_order"].append(float(cols[1]))
+    return out
+
+
+def membrane_file_diffs(want_dir: str, got_dir: str) -> dict:
+    """Two membrane output directories (the same file names) -> for each
+    key of ``workloads.MEMBRANE_TOL`` the worst ``|got - want| / (atol +
+    rtol |want| + 5e-5)`` over the files' values (at most 1 within it; 5e-5
+    is half the last printed digit)."""
+    from molar_tpu_torch.workloads import MEMBRANE_TOL
+
+    names = sorted(os.listdir(want_dir))
+    assert names == sorted(os.listdir(got_dir)), (names, sorted(os.listdir(got_dir)))
+    worst = dict.fromkeys(MEMBRANE_TOL, 0.0)
+    for name in names:
+        want = _membrane_file_values(os.path.join(want_dir, name))
+        got = _membrane_file_values(os.path.join(got_dir, name))
+        for key, (rtol, atol) in MEMBRANE_TOL.items():
+            w, g = np.asarray(want[key]), np.asarray(got[key])
+            assert w.shape == g.shape, (name, key)
+            r = np.abs(g - w) / (atol + rtol * np.abs(w) + 5e-5)
+            worst[key] = max(worst[key], float(r.max(initial=0.0)))
+    return worst
+
+
+EXAMPLE_MEMBRANE_TOML = """
+sel = "all"
+cutoff = 2.0
+order_type = "scdcorr"
+output_dir = "{out}"
+
+[lipids.LIP]
+whole = "resname LIP"
+head = "name P"
+mid = "name C1"
+tails = ["C1-C2-C3-C4"]
+"""
+
+
+def example_inputs(d: str, n_frames: int = 6, bilayer_side: int = 4) -> dict:
+    """Inputs of the port's six examples in directory ``d``, from seeds ->
+    name -> path: a protein scene PDB (``scene_pdb``) and ``n_frames`` of it
+    jittered by 0.002 nm as an XTC, a bilayer GRO / XTC / TOML, a TIP3 water
+    box GRO and 2-hydroxyvaleric acid as an SDF."""
+    from molar_tpu_torch import workloads as wl
+    from molar_tpu_torch.convert import topology_from_numpy
+    from molar_tpu_torch.core.atom import Atom
+    from molar_tpu_torch.core.pbc import PeriodicBox
+    from molar_tpu_torch.core.state import State
+    from molar_tpu_torch.core.system import System
+    from molar_tpu_torch.core.topology import Topology
+    from molar_tpu_torch.io import FileHandler
+
+    from torch_molecules import molecule_system, with_hydrogens
+    from torch_structures import scene_pdb
+
+    p = {k: os.path.join(d, v) for k, v in (
+        ("pdb", "scene.pdb"), ("xtc", "scene.xtc"), ("bilayer_gro", "bilayer.gro"),
+        ("bilayer_xtc", "bilayer.xtc"), ("toml", "membrane.toml"), ("tip3", "tip3.gro"),
+        ("sdf", "ligand.sdf"), ("obj", "ses.obj"), ("tip4", "tip4.gro"),
+        ("membrane_out", "membrane_out"))}
+    with open(p["pdb"], "w") as fh:
+        fh.write(scene_pdb(seed=2))
+    system = System.from_file(p["pdb"])
+    rng = np.random.default_rng(0)
+    with FileHandler(p["xtc"], "w") as fh:
+        for k in range(n_frames):
+            st = system.state.copy()
+            st.coords = (st.coords + rng.normal(0, 0.002, st.coords.shape)).astype(np.float32)
+            st.time, st.step = float(k), k
+            fh.write(system.topology, st)
+    bilayer = wl.synth_bilayer(bilayer_side, bilayer_side)
+    n = len(bilayer.coords)
+    nl = n // 6
+    top = topology_from_numpy(["P", "G", "C1", "C2", "C3", "C4"] * nl, ["LIP"] * n,
+                              np.repeat(np.arange(1, nl + 1), 6), np.repeat(np.arange(nl), 6),
+                              ["A"] * n, np.full(n, 12.0), np.zeros(n), np.ones(n), np.zeros(n),
+                              np.full(n, 6))
+    System(top, State(coords=bilayer.coords, box=PeriodicBox(bilayer.box))).save(
+        p["bilayer_gro"])
+    wl.write_membrane_xtc(bilayer, p["bilayer_xtc"], 3)
+    with open(p["toml"], "w") as fh:
+        fh.write(EXAMPLE_MEMBRANE_TOML.format(out=p["membrane_out"]))
+    atoms, coords = [], []
+    for k in range(2):
+        atoms.append(Atom(name="CA", resname="ALA", resid=k + 1, atomic_number=6, mass=12.0))
+        coords.append(rng.uniform(0, 3, 3))
+    for w in range(3):
+        base = rng.uniform(0, 3, 3)
+        for name, z, off in (("OW", 8, [0, 0, 0]), ("HW1", 1, [0.0957, 0, 0]),
+                             ("HW2", 1, [-0.024, 0.0927, 0])):
+            atoms.append(Atom(name=name, resname="TIP3", resid=10 + w, atomic_number=z,
+                              mass=float(z)))
+            coords.append(base + off)
+    wtop = Topology.from_atoms(atoms)
+    wtop.assign_resindex()
+    System(wtop, State(coords=np.asarray(coords, np.float32),
+                       box=PeriodicBox(np.diag([3.0] * 3)))).save(p["tip3"])
+    # 2-hydroxyvaleric acid (Kekule bonds only, as GAFF typing needs).
+    heavy = with_hydrogens([6, 8, 8, 6, 8, 6, 6, 6], [(0, 1, 2), (0, 2, 1), (0, 3, 1),
+                                                      (3, 4, 1), (3, 5, 1), (5, 6, 1),
+                                                      (6, 7, 1)])
+    molecule_system(*heavy, seed=2).save(p["sdf"])
+    return p
+
+
+def example_argv(p: dict) -> dict:
+    """The command line of each example over :func:`example_inputs`' files."""
+    return {
+        "rmsd_trajectory": ["-f", p["pdb"], p["xtc"], "--sel", "name CA", "--window", "4",
+                            "--log", "0"],
+        "contacts": ["-f", p["pdb"], p["xtc"], "--target", "resname LIG", "--cutoff", "0.5",
+                     "--window", "4", "--log", "0"],
+        "structure_report": [p["pdb"], "--sel", "chain A", "--obj", p["obj"]],
+        "membrane_curvature": ["-f", p["bilayer_gro"], p["bilayer_xtc"], "--options", p["toml"]],
+        "tip3to4_tutorial": [p["tip3"], p["tip4"]],
+        "assign_ff": [p["sdf"]],
+    }
+
+
+def water_box(n_side: int = 6, side: float = 1.86206, seed: int = 0):
+    """A solvent box like GROMACS's ``spc216.gro``: ``n_side``^3 SOL waters
+    (OW, HW1, HW2) on a jittered lattice in a cube of ``side`` nm, each
+    water's hydrogens 0.1 nm from its oxygen at the tetrahedral angle, in a
+    direction from ``default_rng(seed)`` -> a port ``System``."""
+    from molar_tpu_torch.core.atom import Atom
+    from molar_tpu_torch.core.pbc import PeriodicBox
+    from molar_tpu_torch.core.state import State
+    from molar_tpu_torch.core.system import System
+    from molar_tpu_torch.core.topology import Topology
+
+    rng = np.random.default_rng(seed)
+    step = side / n_side
+    grid = np.stack(np.meshgrid(*[np.arange(n_side)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    oxygens = (grid + 0.5) * step + rng.normal(0, 0.01, grid.shape)
+    half = np.radians(109.47) / 2
+    coords, atoms = [], []
+    for k, o in enumerate(oxygens):
+        u = rng.normal(size=3)
+        u /= np.linalg.norm(u)
+        v = np.cross(u, rng.normal(size=3))
+        v /= np.linalg.norm(v)
+        for name, h in (("OW", o), ("HW1", o + 0.1 * (np.cos(half) * u + np.sin(half) * v)),
+                        ("HW2", o + 0.1 * (np.cos(half) * u - np.sin(half) * v))):
+            atoms.append(Atom(name=name, resname="SOL", resid=k + 1).guess_element_and_mass())
+            coords.append(h)
+    top = Topology.from_atoms(atoms)
+    top.assign_resindex()
+    return System(top, State(coords=np.asarray(coords, np.float32),
+                             box=PeriodicBox(np.diag([side] * 3))))
