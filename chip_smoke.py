@@ -327,9 +327,10 @@ WL_BOX = 8.0
 WL_FRAMES = 1024
 WL_REPEATS = 3
 WL_SWEEP = (16, 32, 64, 128, 256, 512, 1024)
-WL_STAGES = {"ca_rmsd": ("decode", "fit_rmsd"), "com_splits": ("decode", "com_gyration"),
-             "contacts": ("decode", "contacts"),
-             "fused": ("decode", "fit_rmsd", "com_gyration", "contacts")}
+WL_STAGES = {"ca_rmsd": ("ca_rmsd.decode", "ca_rmsd.fit_rmsd"),
+             "com_splits": ("com_splits.decode", "com_splits.com_gyration"),
+             "contacts": ("contacts.decode", "contacts.contacts"),
+             "fused": ("fused.decode", "fused.fit_rmsd", "fused.com_gyration", "fused.contacts")}
 # How each per-frame output of a workload's module is held against the CPU
 # run: "abs" within 1e-5, "rel" within 1e-5 relative, "equal".
 WL_OUTPUTS = {"ca_rmsd": (("rmsd", "abs"),),
@@ -1807,7 +1808,7 @@ def _kabsch_convergence(mobile, ref, masses):
 SASA_FLOPS_PER_TRIPLE = 48
 SASA_FRAMES = 64
 SASA_REPEATS = 3
-SASA_STAGES = ("decode", "lists", "sasa", "residues")
+SASA_STAGES = ("sasa.decode", "sasa.lists", "sasa.arcs", "sasa.residues")
 # Per-residue areas, the card against the CPU, nm^2: both are float32;
 # ``atan2`` and ``acos`` differ by ulps between the two, over 4 atoms.
 SASA_ATOL = 2e-5
@@ -3317,7 +3318,7 @@ def phase_grid_contacts(device, wl_system, wl_path, dodeca_path):
     _no_sync_window(model, dev_window)
     ms = _graph_ms(lambda: model(*dev_window), 3)
     _, enqueue_ms, by_stage, ops, top = _workload_window(model, dev_window,
-                                                        ("decode", "contacts"))
+                                                        WL_STAGES["contacts"])
     loop_ms = _cuda_ms(lambda: model.pairs(coords, boxes, invs, plain=True), 1)
     loop_ops = _op_count(lambda: model.pairs(coords[:8], boxes[:8], invs[:8], plain=True))
     t0 = time.perf_counter()

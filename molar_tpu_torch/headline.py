@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import convert
+from . import convert, tracing
 from .io.xtc import XtcHandler
 from .ops.measure import fit_rmsd
 from .ops.neighbor import estimate_caps, within_mask, within_mask_window
@@ -201,14 +201,21 @@ class FitWithinWindow(nn.Module):
     @torch.no_grad()
     def forward(self, transport, boxes, invs):
         """-> per frame (rmsd f32, count i64, checksum i64 in [0, 2^32),
-        overflow bool), each of shape (B,)."""
-        coords = decode_window_coords(transport)
-        rmsd, _, _ = fit_rmsd(coords[:, self.protein_idx], self.ref, self.masses)
-        masks, overflows = self.masks(coords, boxes, invs)
-        ids1 = torch.arange(1, coords.shape[1] + 1, device=coords.device)
-        # torch has no uint32 sum: int64 sum, then wrap to 32 bits.
-        checks = (ids1 * masks).sum(dim=1) & 0xFFFFFFFF
-        return rmsd, masks.sum(dim=1), checks, overflows
+        overflow bool), each of shape (B,). Its four stages are the spans
+        ``fit_within.decode``, ``.fit``, ``.search`` (:meth:`masks`) and
+        ``.checksum`` (:mod:`~molar_tpu_torch.tracing`)."""
+        with tracing.span("fit_within.decode"):
+            coords = decode_window_coords(transport)
+        with tracing.span("fit_within.fit"):
+            rmsd, _, _ = fit_rmsd(coords[:, self.protein_idx], self.ref, self.masses)
+        with tracing.span("fit_within.search"):
+            masks, overflows = self.masks(coords, boxes, invs)
+        with tracing.span("fit_within.checksum"):
+            ids1 = torch.arange(1, coords.shape[1] + 1, device=coords.device)
+            # torch has no uint32 sum: int64 sum, then wrap to 32 bits.
+            checks = (ids1 * masks).sum(dim=1) & 0xFFFFFFFF
+            counts = masks.sum(dim=1)
+        return rmsd, counts, checks, overflows
 
 
 def run(xtc_path, ref, masses, protein_idx, box, cutoff, dims, caps0, window, device,

@@ -41,9 +41,9 @@ import sys
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from .. import config  # noqa: F401  (pins fp32 matmuls)
+from .. import tracing
 from ..convert import transport_to_torch
 from ..core.pbc import PeriodicBox
 from ..ops.measure import contiguous_segments_dense
@@ -62,10 +62,6 @@ _VORO_BOUND = 10.0
 #: 1.24, 5.72 / 2.08, 5.62 / 3.77: 2^27 is within 2 % of the fastest at
 #: about half its memory.
 BLOCK_ELEMS = 1 << 27
-
-
-def _stage(name: str):
-    return record_function(f"stage:{name}")
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +429,7 @@ class MembraneWindow(nn.Module):
         B, L, K = pid.shape
         valid = valid & pmask.any(dim=2)
 
-        with _stage("smooth.fit"):
+        with tracing.span("smooth.fit"):
             # local frames: columns (n x ex), (n x (n x ex)), -n
             c0 = _cross(normals, self.ex.expand_as(normals))
             c1 = _cross(normals, c0)
@@ -487,7 +483,7 @@ class MembraneWindow(nn.Module):
             vn = _unit(torch.stack([d, e, -torch.ones_like(d)], dim=-1))
             new_normals = _mat3(to_lab, vn)
 
-        with _stage("smooth.voronoi"):
+        with tracing.span("smooth.voronoi"):
             # Voronoi cells in the local tangent plane
             pts2 = torch.where(pmask[..., None], local[..., :2], 0.0)
             pts2 = torch.where(torch.isfinite(pts2), pts2, 0.0)
@@ -517,7 +513,7 @@ class MembraneWindow(nn.Module):
         valid = valid & ~runaway
         new_markers = markers
         if not last:
-            with _stage("smooth.scatter"):
+            with tracing.span("smooth.scatter"):
                 # Lipids invalidated this pass keep their markers; valid
                 # owners give member j their fitted projection of j.
                 new_markers = torch.where(valid[..., None],
@@ -564,7 +560,7 @@ class MembraneWindow(nn.Module):
     def forward(self, transport, boxes, invs):
         opt = self.options
         L = self.L
-        with _stage("unwrap_markers"):
+        with tracing.span("unwrap_markers"):
             coords = decode_window_coords(transport)
             B = coords.shape[0]
             if self.triclinic:
@@ -589,10 +585,10 @@ class MembraneWindow(nn.Module):
             heads = self._seg_com(u, "head")
             tails = self._seg_com(u, "tail")
 
-        with _stage("patches"):
+        with tracing.span("patches"):
             pid, pmask, overflow = self._patches(heads, mi)
 
-        with _stage("normals"):
+        with tracing.span("normals"):
             # tail-head vectors + 2-pass normal seeding over the patch
             thv = _unit(heads - tails)
             vecs = thv
@@ -609,12 +605,12 @@ class MembraneWindow(nn.Module):
         valid = torch.ones(B, L, dtype=torch.bool, device=coords.device)
         markers = heads
         for it in range(n_pass):
-            with _stage("smooth"):
+            with tracing.span("smooth"):
                 (markers, normals, valid, nb_ids, nb_mask, meanc, gaussc,
                  areas) = self._smooth_pass(markers, normals, pid, pmask, valid, mi, rev,
                                             last=it == n_pass - 1)
 
-        with _stage("order"):
+        with tracing.span("order"):
             # 5. order parameters per species / tail (on unwrapped coords)
             order = {}
             for sp in self.species_names:
@@ -627,7 +623,7 @@ class MembraneWindow(nn.Module):
                              for tl, orders in self.sp_tails[sp]]
 
         if opt.n_shells_smoothing >= 1:
-            with _stage("curv_smooth"):
+            with tracing.span("curv_smooth"):
                 meanc, gaussc = self._curvature_smoothing(nb_ids, nb_mask, valid, meanc, gaussc)
 
         return {

@@ -40,6 +40,7 @@ from typing import Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import tracing
 from ..convert import transport_to_torch
 from ..io import FileHandler, handler_factory
 from ..io.xtc import XtcHandler
@@ -258,9 +259,12 @@ class TrajectoryReader:
 
         ended = False
         with FileHandler(path) as fh:
-            t0 = time.perf_counter()
-            for st in fh.iter_states(prefetch=0):
-                self._lap("decode", t0)
+            states = fh.iter_states(prefetch=0)
+            while True:
+                with tracing.sink(self.timings), tracing.span("decode"):
+                    st = next(states, None)
+                if st is None:
+                    break
                 if self._past_end(fr, st.time):
                     ended = True
                     break
@@ -276,7 +280,6 @@ class TrajectoryReader:
                 fr += 1
                 if len(buf_c) == window:
                     yield flush()
-                t0 = time.perf_counter()
         if buf_c:
             yield flush()
         return fr, n_eligible, ended
@@ -286,39 +289,33 @@ class TrajectoryReader:
         ``alloc``'s memory (None: ordinary arrays): the codec's own output
         where that is the wire form, else a packed copy (the subset's
         rows, the deltas)."""
-        t0 = time.perf_counter()
-        try:
+        with tracing.sink(self.timings):
             if quantized:
                 direct = sub is None and quantized is True
                 try:
-                    ic, scale, boxes, times = h.read_frames_i16(
-                        start, count, n_prefix=n_prefix, alloc=alloc if direct else None)
+                    with tracing.span("decode"):
+                        ic, scale, boxes, times = h.read_frames_i16(
+                            start, count, n_prefix=n_prefix, alloc=alloc if direct else None)
                 except ValueError:
                     pass  # not representable as i16: ship plain f32
                 else:
-                    t0 = self._lap("decode", t0)
                     if direct:
                         return (ic, scale), boxes, times
-                    rows = ic if sub is None else np.take(ic, sub, axis=1)
-                    if quantized == "delta" and len(rows) > 1:
-                        d = np.diff(rows.astype(np.int32), axis=0)
-                        if np.abs(d).max(initial=0) <= 127:
-                            return ((_place(alloc, rows[0]), _place(alloc, d, np.int8), scale),
-                                    boxes, times)
-                    return (_place(alloc, rows), scale), boxes, times
-            coords, boxes, times = h.read_frames(start, count,
-                                                 alloc=alloc if sub is None else None)
-            t0 = self._lap("decode", t0)
+                    with tracing.span("pack"):
+                        rows = ic if sub is None else np.take(ic, sub, axis=1)
+                        if quantized == "delta" and len(rows) > 1:
+                            d = np.diff(rows.astype(np.int32), axis=0)
+                            if np.abs(d).max(initial=0) <= 127:
+                                return ((_place(alloc, rows[0]), _place(alloc, d, np.int8),
+                                         scale), boxes, times)
+                        return (_place(alloc, rows), scale), boxes, times
+            with tracing.span("decode"):
+                coords, boxes, times = h.read_frames(start, count,
+                                                     alloc=alloc if sub is None else None)
             if sub is not None:
-                coords = _place(alloc, np.take(coords, sub, axis=1))
+                with tracing.span("pack"):
+                    coords = _place(alloc, np.take(coords, sub, axis=1))
             return coords, boxes, times
-        finally:
-            self._lap("pack", t0)
-
-    def _lap(self, part: str, t0: float) -> float:
-        t1 = time.perf_counter()
-        self.timings[part] += t1 - t0
-        return t1
 
 
 def _place(alloc, a, dtype=None):
@@ -468,10 +465,38 @@ class WindowPipeline:
     decode and H2D of window k+1 overlap compute of window k. On a CPU
     ``device`` the windows are plain tensors. ``subset`` (int indices) ships
     only those atom rows, as :meth:`TrajectoryReader.iter_windows` reads
-    them. ``timings`` holds the host seconds of the last :meth:`run` by
-    part: the feeder's ``decode``, ``pack`` (both the reader's),
-    ``ring_wait``, ``copy_start`` and ``put_wait``, the consumer's
-    ``get_wait`` and ``enqueue`` (inside ``window_fn``), and ``windows``.
+    them.
+
+    ``timings`` holds what the last :meth:`run` measured
+    (:mod:`~molar_tpu_torch.tracing` spans; host seconds unless said), with
+    the per-layer metric of ``portbench/`` that reads each:
+
+    * ``decode``, ``pack``: the reader's codec decode (``decode_ms_per_frame``)
+      and packing of its output into the wire form (no metric), on the
+      feeder thread;
+    * ``ring_wait``: the feeder waiting for a staging buffer whose last
+      copies are still in flight; ``copy_start``: starting a window's copies;
+      ``put_wait``: waiting for room in the queue (the consumer is behind).
+      No metric reads them: an operator reads where the feeder waits;
+    * ``get_wait``: the consumer waiting for the next window
+      (``feed_wait_pct``); ``enqueue``: its call of ``window_fn``, the wait
+      on the copies' event included (``enqueue_ms_per_frame``);
+    * ``windows``: the windows run (the count ``device_allocs_per_window``
+      divides by);
+    * the window function's own spans, each under its module's name
+      (``fit_within.search``, ``sasa.lists``, ...), and where they name a
+      device (``sasa.lists`` and ``sasa.arcs``) and a profiler records,
+      their ``<name>@device`` stream seconds, added by
+      :func:`~molar_tpu_torch.tracing.resolve` over :attr:`events` once the
+      caller has the results on the host;
+    * after :func:`run_with_overflow_retry`: ``retry`` (the retry pass),
+      ``retried_windows`` and, on a CUDA device, ``device_allocs`` (the
+      caching allocator's ``cudaMalloc`` calls over the whole call).
+
+    The consumer's spans of window ``k`` carry ``k`` as the argument of
+    their ``stage:`` ranges. A profiler records only the thread that
+    started it (the consumer's, where the caller starts one), so the
+    feeder's spans are totals only.
     """
 
     def __init__(self, reader, window: int, window_fn: Callable, device, quantized=False,
@@ -486,6 +511,8 @@ class WindowPipeline:
         self.quantized = quantized
         self.subset = subset
         self.timings: dict = {}
+        #: CUDA event pairs of the last run's device spans, not yet resolved.
+        self.events: list = []
 
     def run(self):
         """Yield ``(frame_ids, results)`` per window, in stream order."""
@@ -496,15 +523,15 @@ class WindowPipeline:
         q: queue.Queue = queue.Queue(maxsize=_QUEUE_DEPTH)
         cancel = threading.Event()
         done = object()
-        clock = time.perf_counter
+        span = tracing.span
         t = self.timings = dict.fromkeys(
             ("decode", "pack", "ring_wait", "copy_start", "put_wait", "get_wait", "enqueue"), 0.0)
         t["windows"] = 0
+        events = self.events = []
         read0 = dict(self.reader.timings)
 
         def put(item) -> bool:
-            t0 = clock()
-            try:
+            with span("put_wait"):
                 while not cancel.is_set():
                     try:
                         q.put(item, timeout=0.1)
@@ -512,71 +539,74 @@ class WindowPipeline:
                     except queue.Full:
                         continue
                 return False
-            finally:
-                t["put_wait"] += clock() - t0
+
+        def feed(windows) -> bool:
+            """Read, copy and queue the next window -> whether to go on."""
+            if cuda:
+                with span("ring_wait"):
+                    ring.begin()
+            item = next(windows, None)
+            if item is None:
+                return False
+            ready = None
+            with span("copy_start"):
+                if runner is not None:
+                    # Padded, split and copied (blocking) shard by shard.
+                    dev = runner.prepare(*item[:3])
+                elif cuda:
+                    with torch.cuda.stream(copy_stream):
+                        dev = transport_to_torch(item, self.device, non_blocking=True,
+                                                 alloc=ring)
+                        ready = torch.cuda.Event()
+                        ready.record(copy_stream)
+                    ring.end(ready)
+                else:
+                    dev = transport_to_torch(item, self.device)
+            return put((dev, item[4], ready))
 
         def feeder():
-            try:
-                windows = self.reader.iter_windows(self.window, quantized=self.quantized,
-                                                   subset=self.subset, alloc=ring)
-                while True:
-                    if cuda:
-                        t0 = clock()
-                        ring.begin()
-                        t["ring_wait"] += clock() - t0
-                    item = next(windows, None)
-                    if item is None:
-                        break
-                    ready = None
-                    t0 = clock()
-                    if runner is not None:
-                        # Padded, split and copied (blocking) shard by shard.
-                        dev = runner.prepare(*item[:3])
-                    elif cuda:
-                        with torch.cuda.stream(copy_stream):
-                            dev = transport_to_torch(item, self.device, non_blocking=True,
-                                                     alloc=ring)
-                            ready = torch.cuda.Event()
-                            ready.record(copy_stream)
-                        ring.end(ready)
-                    else:
-                        dev = transport_to_torch(item, self.device)
-                    t["copy_start"] += clock() - t0
-                    if not put((dev, item[4], ready)):
-                        return
-            except BaseException as e:  # surfaced to the consumer
-                put(e)
-                return
-            put(done)
+            with tracing.sink(t):
+                try:
+                    windows = self.reader.iter_windows(self.window, quantized=self.quantized,
+                                                       subset=self.subset, alloc=ring)
+                    while feed(windows):
+                        pass
+                except BaseException as e:  # surfaced to the consumer
+                    put(e)
+                    return
+                put(done)
 
         thread = threading.Thread(target=feeder, daemon=True)
         thread.start()
         try:
+            k = 0
             while True:
-                t0 = clock()
-                item = q.get()
-                t["get_wait"] += clock() - t0
-                if item is done:
-                    break
-                if isinstance(item, BaseException):
-                    raise item
-                dev, ids, ready = item
-                t0 = clock()
-                if ready is not None:
-                    compute = torch.cuda.current_stream(self.device)
-                    compute.wait_event(ready)
-                    for x in _leaves(dev):
-                        # Allocated on the copy stream, used on compute:
-                        # keep the allocator from recycling it early.
-                        x.record_stream(compute)
-                if runner is not None:
-                    shards, b, form = dev
-                    res = runner.trim(runner.wrap(self.window_fn, form)(shards), b)
-                else:
-                    res = self.window_fn(*dev)
-                t["enqueue"] += clock() - t0
-                t["windows"] += 1
+                # The window's sink is installed around the consumer's own
+                # work only, never across the yield.
+                with tracing.sink(t, window=k, events=events):
+                    with span("get_wait"):
+                        item = q.get()
+                    if item is done:
+                        break
+                    if isinstance(item, BaseException):
+                        raise item
+                    dev, ids, ready = item
+                    with span("enqueue"):
+                        if ready is not None:
+                            compute = torch.cuda.current_stream(self.device)
+                            compute.wait_event(ready)
+                            for x in _leaves(dev):
+                                # Allocated on the copy stream, used on compute:
+                                # keep the allocator from recycling it early.
+                                x.record_stream(compute)
+                        if runner is not None:
+                            shards, b, form = dev
+                            res = runner.trim(runner.wrap(self.window_fn, form)(shards), b)
+                        else:
+                            res = self.window_fn(*dev)
+                    t["windows"] += 1
                 yield ids, res
+                k += 1
         finally:
             cancel.set()
             thread.join()
@@ -619,40 +649,70 @@ def run_with_overflow_retry(
     a :class:`~molar_tpu_torch.parallel.mesh.MeshWindowRunner`) shards
     every window's frames over its devices, the retried ones through the
     same runner; ``device`` is then the mesh's first.
+
+    The pass's :class:`WindowPipeline` gets three more ``timings``:
+    ``retry``, the host seconds of re-reading, copying and re-running the
+    flagged windows (0 when none is), as one span (the window function's
+    spans inside it add to no total); ``retried_windows``; and on a CUDA
+    device ``device_allocs``, the caching allocator's ``cudaMalloc`` calls
+    on ``device`` over the whole call, read once at its start and once at
+    its end.
     """
     runner = as_runner(mesh)
+    dev = runner.device if runner is not None else torch.device(device)
+    allocs0 = _device_allocs(dev)
     fns = {0: build_fn(0)}
-    results = list(WindowPipeline(reader, window, fns[0], device, quantized=quantized,
-                                  subset=subset, mesh=runner).run())
-    if not results:
-        return results, 0
-    flags = torch.stack([overflow_of(res).any() for _, res in results]).cpu().numpy()
-    retried = 0
-    for w in np.flatnonzero(flags):
-        ids = results[w][0]
-        retried += 1
-        for tier in range(1, n_tiers):
-            if tier not in fns:
-                fns[tier] = build_fn(tier)
-            sub = TrajectoryReader(
-                reader.paths, begin=int(ids[0]), end=int(ids[-1]), skip=reader.skip
-            )
-            redo_in = list(sub.iter_windows(window, quantized=quantized, subset=subset))
-            if len(redo_in) != 1 or not np.array_equal(redo_in[0][4], ids):
-                raise AnalysisError(f"re-read of window {w} did not reproduce frames {ids}")
-            if runner is not None:
-                res = runner.call(fns[tier], *redo_in[0][:3])
-            else:
-                res = fns[tier](*transport_to_torch(redo_in[0], device))
-            if not bool(overflow_of(res).any()):
-                results[w] = (ids, res)
-                break
-        else:
-            raise AnalysisError(
-                f"window {w} (frames {ids[0]}..{ids[-1]}) still overflows at "
-                f"the largest capacity tier {n_tiers - 1}"
-            )
-    return results, retried
+    pipe = WindowPipeline(reader, window, fns[0], device, quantized=quantized, subset=subset,
+                          mesh=runner)
+    results = list(pipe.run())
+    t = pipe.timings
+    t["retry"], t["retried_windows"] = 0.0, 0
+    flagged = []
+    if results:
+        flags = torch.stack([overflow_of(res).any() for _, res in results]).cpu().numpy()
+        tracing.resolve(t, pipe.events)
+        flagged = np.flatnonzero(flags)
+    if len(flagged):
+        with tracing.sink(t), tracing.span("retry"):
+            tracing.count("retried_windows", len(flagged))
+            with tracing.sink(None):  # the re-runs' own spans add to no total
+                for w in flagged:
+                    ids = results[w][0]
+                    for tier in range(1, n_tiers):
+                        if tier not in fns:
+                            fns[tier] = build_fn(tier)
+                        sub = TrajectoryReader(
+                            reader.paths, begin=int(ids[0]), end=int(ids[-1]), skip=reader.skip
+                        )
+                        redo_in = list(sub.iter_windows(window, quantized=quantized,
+                                                        subset=subset))
+                        if len(redo_in) != 1 or not np.array_equal(redo_in[0][4], ids):
+                            raise AnalysisError(
+                                f"re-read of window {w} did not reproduce frames {ids}")
+                        if runner is not None:
+                            res = runner.call(fns[tier], *redo_in[0][:3])
+                        else:
+                            res = fns[tier](*transport_to_torch(redo_in[0], device))
+                        if not bool(overflow_of(res).any()):
+                            results[w] = (ids, res)
+                            break
+                    else:
+                        raise AnalysisError(
+                            f"window {w} (frames {ids[0]}..{ids[-1]}) still overflows at "
+                            f"the largest capacity tier {n_tiers - 1}"
+                        )
+    if allocs0 is not None:
+        t["device_allocs"] = _device_allocs(dev) - allocs0
+    return results, t["retried_windows"]
+
+
+def _device_allocs(device) -> Optional[int]:
+    """The caching allocator's ``cudaMalloc`` calls on ``device`` so far, or
+    None off CUDA."""
+    if device.type != "cuda":
+        return None
+    stats = torch.cuda.memory_stats(device)
+    return stats.get("num_device_alloc", stats.get("segment.all.allocated", 0))
 
 
 def build_arg_parser(description: str = "trajectory analysis") -> argparse.ArgumentParser:
@@ -729,10 +789,31 @@ class WindowAnalysisTask:
 
     def run(self, argv: Optional[Sequence[str]] = None, device=None, mesh=None) -> int:
         """Parse ``argv``, build and stream -> the number of frames read."""
+        timings = {}
+        with tracing.sink(timings):
+            with tracing.span("setup"):
+                pipeline = self._build_pipeline(argv, device, mesh)
+            n = 0
+            with tracing.span("stream"):
+                t0 = time.perf_counter()
+                for ids, results in pipeline.run():
+                    self.accumulate(ids, results)
+                    n += len(ids)
+                    if self.args.log_every and n % self.args.log_every < len(ids):
+                        log.info("%d frames, %.1f frames/s", n, n / (time.perf_counter() - t0))
+                self.post_process()
+        tracing.resolve(pipeline.timings, pipeline.events)
+        #: What the last run measured: host seconds of ``setup`` (flags,
+        #: structure file, ``build``) and ``stream`` (the windows and
+        #: ``post_process``), and the pipeline's (:attr:`WindowPipeline.timings`).
+        self.timings = {**timings, **pipeline.timings}
+        return n
+
+    def _build_pipeline(self, argv, device, mesh) -> WindowPipeline:
+        """Flags, device, structure file, ``build`` and window -> the pipeline."""
         from ..config import resolve_device
         from ..core.system import System
 
-        t_start = time.perf_counter()
         parser = build_arg_parser(self.task_name)
         self.add_args(parser)
         args = parser.parse_args(argv)
@@ -754,23 +835,8 @@ class WindowAnalysisTask:
         self.window = auto_window(paths[0], self.subset, requested=args.window)
         if not args.window:
             log.info("auto window: %d frames", self.window)
-
-        pipeline = WindowPipeline(reader, self.window, _Decoded(window_fn), self.device,
-                                  quantized=WIRE, subset=self.subset, mesh=runner)
-        n = 0
-        t0 = time.perf_counter()
-        for ids, results in pipeline.run():
-            self.accumulate(ids, results)
-            n += len(ids)
-            if args.log_every and n % args.log_every < len(ids):
-                log.info("%d frames, %.1f frames/s", n, n / (time.perf_counter() - t0))
-        self.post_process()
-        #: Host seconds of the last run: ``setup`` (flags, structure file,
-        #: ``build``), ``stream`` (the windows and ``post_process``), and
-        #: the pipeline's parts (:attr:`WindowPipeline.timings`).
-        self.timings = {"setup": t0 - t_start, "stream": time.perf_counter() - t0,
-                        **pipeline.timings}
-        return n
+        return WindowPipeline(reader, self.window, _Decoded(window_fn), self.device,
+                              quantized=WIRE, subset=self.subset, mesh=runner)
 
 
 class _Decoded(torch.nn.Module):

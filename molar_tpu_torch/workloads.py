@@ -35,9 +35,8 @@ import time
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
-from . import build, convert, headline
+from . import build, convert, headline, tracing
 from .io.xtc import XtcHandler
 from .membrane import MembraneDevice, MembraneOptions, MembraneSpec, SpeciesTemplate
 from .membrane.device import to_numpy
@@ -142,11 +141,6 @@ def write_xtc(system: System, path: str, n_frames: int) -> None:
     headline.write_trajectory(path, system.coords, system.box, n_frames, sigma=0.01, seed=1)
 
 
-def _stage(name: str):
-    """A named range on the profiler's timeline (free when none records)."""
-    return record_function(f"stage:{name}")
-
-
 class CaRmsd(nn.Module):
     """RMSD of each frame's CA atoms after the mass-weighted fit onto the
     reference. The window ships the CA rows only. Buffers: ``ref`` (n_ca,
@@ -159,9 +153,9 @@ class CaRmsd(nn.Module):
 
     @torch.no_grad()
     def forward(self, transport, boxes, invs):
-        with _stage("decode"):
+        with tracing.span("ca_rmsd.decode"):
             coords = decode_window_coords(transport)
-        with _stage("fit_rmsd"):
+        with tracing.span("ca_rmsd.fit_rmsd"):
             return (fit_rmsd(coords, self.ref, self.masses)[0],)
 
 
@@ -178,9 +172,9 @@ class ComSplits(nn.Module):
 
     @torch.no_grad()
     def forward(self, transport, boxes, invs):
-        with _stage("decode"):
+        with tracing.span("com_splits.decode"):
             coords = decode_window_coords(transport)
-        with _stage("com_gyration"):
+        with tracing.span("com_splits.com_gyration"):
             return dense_segment_com_gyration(coords, self.idx, self.w)
 
 
@@ -214,9 +208,9 @@ class Contacts(nn.Module):
 
     @torch.no_grad()
     def forward(self, transport, boxes, invs):
-        with _stage("decode"):
+        with tracing.span("contacts.decode"):
             coords = decode_window_coords(transport)
-        with _stage("contacts"):
+        with tracing.span("contacts.contacts"):
             return self.pairs(coords, boxes, invs)[2:]
 
 
@@ -238,13 +232,13 @@ class Fused(nn.Module):
 
     @torch.no_grad()
     def forward(self, transport, boxes, invs):
-        with _stage("decode"):
+        with tracing.span("fused.decode"):
             coords = decode_window_coords(transport)
-        with _stage("fit_rmsd"):
+        with tracing.span("fused.fit_rmsd"):
             rmsd = fit_rmsd(coords[:, self.ca], self.ca_rmsd.ref, self.ca_rmsd.masses)[0]
-        with _stage("com_gyration"):
+        with tracing.span("fused.com_gyration"):
             gyr = dense_segment_com_gyration(coords, self.com_splits.idx, self.com_splits.w)[1]
-        with _stage("contacts"):
+        with tracing.span("fused.contacts"):
             count, overflow = self.contacts.pairs(coords, boxes, invs)[2:]
         return rmsd, gyr, count, overflow
 
@@ -295,14 +289,15 @@ class Sasa(nn.Module):
 
     @torch.no_grad()
     def forward(self, transport, boxes, invs):
-        with _stage("decode"):
+        dev = self.radii.device
+        with tracing.span("sasa.decode"):
             coords = decode_window_coords(transport)
-        with _stage("lists"):
+        with tracing.span("sasa.lists", device=dev):
             nbr, overflow = sasa_lr.neighbor_lists_device(
                 coords, self.radii, self.extents, self.dims, self.cell_cap, self.k_cap)
-        with _stage("sasa"):
+        with tracing.span("sasa.arcs", device=dev):
             areas = sasa_lr.sasa(coords, self.radii, nbr, n_slices=self.n_slices)
-        with _stage("residues"):
+        with tracing.span("sasa.residues"):
             return dense_segment_sum(areas, self.idx, self.w), overflow
 
 
