@@ -8,8 +8,9 @@ of every atom against the protein), through each of the port's three search
 routes: the hand-written ghost-slab CUDA kernels (a counting-sort binning of
 the window into cells, then a 27-cell stencil, two launches a window) and
 the hand-written per-pair min-image CUDA kernel over the same binning (two
-launches a window too) on the headline's cubic box, and the triclinic
-correction path (plain torch) on a rhombic dodecahedron of the same density.
+launches a window too) on the headline's cubic box, and on a rhombic
+dodecahedron of the same density the ghost-slab kernels again and the
+triclinic correction path (plain torch), side by side.
 Then the four selection workloads (CA-RMSD, per-residue COM and gyration,
 protein-ligand contact lists, the three fused) stream a 50,000-atom solvated
 protein over windows that carry only their selections' rows, the host side
@@ -72,13 +73,17 @@ Phases, one line each on stdout (the workloads a line each):
    maximum or scatter among the device's operations; fps, the device's
    busy share and the kernels' launches;
 8. dodecahedron path: 100k atoms (a 5k-atom protein ball) in a rhombic
-   dodecahedron at 100 atoms/nm^3, 64 frames in windows of 16 through the
-   sparse-target correction path with overflow retry: frames 0 / mid / last
-   against the CPU path, frame 0 on a seeded sample of 5,000 atoms against
-   a float64 brute force over the lattice images, no host sync inside a
-   window (``torch.cuda.set_sync_debug_mode("error")`` over a window, and
-   the window captured into a CUDA graph, whose replay equals the eager
-   run), fps and the device's busy share;
+   dodecahedron at 100 atoms/nm^3, 64 frames in windows of 16 with overflow
+   retry through both routes of a skewed box, the ghost-slab kernels (its
+   default, two launches a window) and the sparse-target correction path
+   (no launch): for each, frames 0 / mid / last against the same route on
+   the CPU, no host sync inside a window
+   (``torch.cuda.set_sync_debug_mode("error")`` over a window, and the
+   window captured into a CUDA graph, whose replay equals the eager run),
+   fps and the device's busy share; the two routes' masks equal but for
+   sources within 1e-6 relative of the cutoff, and frame 0 of the ghost
+   route on a seeded sample of 5,000 atoms against a float64 brute force
+   over the lattice images;
 9. workloads path: ``benchmarks/workloads.py``'s system at its defaults
    (50,000 atoms, a 4,000-atom protein, an 8 nm box, 0.4 nm contacts) over
    1,024 frames, each of the four workloads through
@@ -154,7 +159,7 @@ Phases, one line each on stdout (the workloads a line each):
    host enqueue and device ms a window by node, top device operations and
    busy share; the host tier (a dynamic ``same``) on 3 frames and its fps;
    the dodecahedron file's first window through the headline search
-   (correction route) equal phase 8's results;
+   (correction route) equal phase 8's correction route's results;
 14. espaloma path: the espaloma charge model (its widths fixed by the model
    file) on 1,000 seeded drug-like ligands of 20-80 atoms and on a
    120-residue ALA / GLY / SER / PHE peptide (``tests/torch_molecules.py``):
@@ -238,8 +243,10 @@ Phases, one line each on stdout (the workloads a line each):
 Each path resets every kernel's launch count just before it and reads the
 counts just after: the ghost path must launch only the two ghost kernels,
 the rows path the binning kernel and the row kernel once a window each and
-never the ghost stencil, the dodecahedron, workloads, sasa, membrane,
-espaloma and trjconv paths none, the selection path the two ghost
+never the ghost stencil, the dodecahedron path the two ghost kernels once
+a window on its ghost route and none on its correction route, the
+workloads, sasa, membrane, espaloma and trjconv paths none, the selection
+path the two ghost
 kernels once a ghost-route within node a window, the 1M path the two
 ghost kernels at least once a window, the mesh path once a shard a
 window, the user-API path each ghost kernel at least once for every
@@ -297,13 +304,12 @@ CUTOFF = 0.5
 WINDOW = 64
 # The dodecahedron path: image distance d with d^3 * sqrt(2)/2 = 1000 nm^3
 # (the headline's volume, so 100 atoms/nm^3; a grid of 18 x 18 x 15 cells
-# from the cell heights), 64 frames, 3 timed passes.
+# from the cell heights), 64 frames.
 DODECA_D = (1000.0 * np.sqrt(2.0)) ** (1 / 3)
 DODECA_DIMS = (18, 18, 15)
 DODECA_FRAMES = 64
-# The card bounds this path whatever the window: it keeps the 16 frames it
-# was first measured at (a 64-frame window would be the whole file), and two
-# timed passes.
+# It keeps the 16 frames a window it was first measured at (a 64-frame
+# window would be the whole file), and two timed passes a route.
 DODECA_WINDOW = 16
 DODECA_REPEATS = 2
 BRUTE_SAMPLE = 5000
@@ -1160,14 +1166,16 @@ def phase_rows_path(device, args, path, ghost, native_within0, ghost_model, ghos
 
 
 def phase_dodecahedron(device, workdir):
-    """The triclinic correction path on a rhombic dodecahedron."""
+    """A rhombic dodecahedron through both routes of a skewed box: the ghost
+    kernels (the default on its height-sized grid) and the triclinic
+    correction path (asked for by name), each streamed and timed."""
     from molar_tpu_torch import convert, headline
     from molar_tpu_torch.core.pbc import PeriodicBox
     from molar_tpu_torch.io.xtc import XtcHandler
     from molar_tpu_torch.ops.neighbor import grid_dims_for
     from molar_tpu_torch.tasks.trajectory import TrajectoryReader, decode_window_coords
 
-    from torch_scenes import brute_within, dodecahedron
+    from torch_scenes import brute_within, dodecahedron, outside_band
 
     box = PeriodicBox(dodecahedron(DODECA_D))
     dims = grid_dims_for(box, CUTOFF)
@@ -1179,34 +1187,59 @@ def phase_dodecahedron(device, workdir):
     path = os.path.join(workdir, "dodeca.xtc")
     headline.write_trajectory(path, coords0, box.matrix, DODECA_FRAMES)
     caps0 = headline.base_caps(path, box.inv, dims, pidx)
-    model = convert.from_numpy(ref, pmass, pidx, box.matrix, CUTOFF, headline.caps_for(*caps0, 0),
-                               dims, device)
-    if model.search != "corrections":
-        raise AssertionError(f"the dodecahedron took route {model.search}")
+    models = {search: convert.from_numpy(ref, pmass, pidx, box.matrix, CUTOFF,
+                                         headline.caps_for(*caps0, 0), dims, device,
+                                         search=search)
+              for search in ("ghost", "corrections")}
+    if [m.search for m in models.values()] != ["ghost", "corrections"]:
+        raise AssertionError(f"the dodecahedron took routes {[m.search for m in models.values()]}")
     dev_windows = [convert.transport_to_torch(w, device) for w in
                    TrajectoryReader([path]).iter_windows(DODECA_WINDOW, quantized=_wire())]
-    enqueue_ms = _no_sync_window(model, dev_windows[0])
+    n_windows = len(dev_windows)
+    routes = {}
+    for search, model in models.items():
+        enqueue_ms = _no_sync_window(model, dev_windows[0])
+        _reset_launches()
+        (ids, rmsd, count, check, retried), passes = _timed_passes(
+            DODECA_REPEATS, lambda: headline.run(path, ref, pmass, pidx, box, CUTOFF, dims,
+                                                 caps0, DODECA_WINDOW, device, search=search))
+        launches = _launches()
+        per_pass = n_windows + retried
+        want = ({"cell_bins": DODECA_REPEATS * per_pass, "within_ghost": DODECA_REPEATS * per_pass,
+                 "within_rows": 0} if search == "ghost" else dict.fromkeys(launches, 0))
+        if launches != want:
+            raise AssertionError(f"the {search} route launched {launches}, expected {want}")
+        if not np.array_equal(ids, np.arange(DODECA_FRAMES)):
+            raise AssertionError(f"dodecahedron stream returned frames {ids[:4]}... ({len(ids)})")
+        if not (np.isfinite(rmsd).all() and (count > 0).all()):
+            raise AssertionError("dodecahedron: non-finite RMSD or empty within set")
+        prof_wall, prof_busy, prof_top, _ = _device_profile(
+            lambda: [model(*w) for w in dev_windows[:2]])
+        parity, rmsd_err = _cpu_parity(path, (rmsd, count, check), ref, pmass, pidx, box, dims,
+                                       caps0, search=search)
+        routes[search] = dict(
+            results=(rmsd, count, check), e2e_fps=[round(p, 3) for p in passes],
+            e2e_fps_best=max(passes), e2e_fps_median=float(np.median(passes)),
+            windows_retried=retried, launches=launches, profiled_wall_ms=prof_wall,
+            device_busy_ms=prof_busy, device_busy_share=prof_busy / prof_wall,
+            top_device_ops=repr(prof_top), parity_diff=parity, rmsd_max_abs_err_vs_cpu=rmsd_err,
+            no_sync_window=True, window_enqueue_ms=enqueue_ms)
 
-    _reset_launches()
-    (ids, rmsd, count, check, retried), passes = _timed_passes(
-        DODECA_REPEATS, lambda: headline.run(path, ref, pmass, pidx, box, CUTOFF, dims,
-                                                  caps0, DODECA_WINDOW, device))
-    kernel_launches = _launches()
-    if any(kernel_launches.values()):
-        raise AssertionError(f"the correction path launched kernels {kernel_launches}")
-    if not np.array_equal(ids, np.arange(DODECA_FRAMES)):
-        raise AssertionError(f"dodecahedron stream returned frames {ids[:4]}... ({len(ids)})")
-    if not (np.isfinite(rmsd).all() and (count > 0).all()):
-        raise AssertionError("dodecahedron: non-finite RMSD or empty within set")
-    prof_wall, prof_busy, prof_top, _ = _device_profile(
-        lambda: [model(*w) for w in dev_windows[:2]])
-
-    parity, rmsd_err = _cpu_parity(path, (rmsd, count, check), ref, pmass, pidx, box, dims,
-                                   caps0)
+    # The routes' masks, window by window: where they differ, the source's
+    # float64 least distance must lie within 1e-6 relative of the cutoff.
+    route_diffs, route_far = 0, 0
+    for transport, boxes, invs in dev_windows:
+        coords = decode_window_coords(transport)
+        got = [models[k].masks(coords, boxes, invs)[0].cpu().numpy() for k in models]
+        for f in np.flatnonzero((got[0] != got[1]).any(axis=1)):
+            far, _ = outside_band(got[0][f], got[1][f], coords[f].cpu().numpy(), pidx,
+                                  boxes[f].cpu().numpy(), CUTOFF)
+            route_diffs += int((got[0][f] != got[1][f]).sum())
+            route_far += int(far.size)
     # Frame 0 on a seeded sample of atoms against the float64 brute force.
     transport, boxes, invs = dev_windows[0]
-    masks, _ = model.masks(decode_window_coords(transport), boxes, invs)
-    mask0 = masks[0].cpu().numpy()
+    mask0 = models["ghost"].masks(decode_window_coords(transport), boxes, invs)[0][0]
+    mask0 = mask0.cpu().numpy()
     with XtcHandler(path) as h:
         frame0 = h.read_frame(0).coords
     sample = np.sort(np.random.default_rng(2).choice(ATOMS, BRUTE_SAMPLE, replace=False))
@@ -1214,21 +1247,24 @@ def phase_dodecahedron(device, workdir):
     want, dmin = brute_within(frame0, sample, pidx, box.matrix, CUTOFF)
     t_brute = time.perf_counter() - t0
     brute_mismatch = int((mask0[sample] != want).sum())
+    ghost, corr = routes["ghost"], routes["corrections"]
     phase("dodecahedron_path", atoms=ATOMS, protein=PROTEIN, d_nm=DODECA_D, dims=dims,
-          frames=len(ids), window=DODECA_WINDOW, caps_tier0=headline.caps_for(*caps0, 0),
-          e2e_fps=[round(p, 3) for p in passes], e2e_fps_best=max(passes),
-          e2e_fps_median=float(np.median(passes)), windows_retried=retried,
-          profiled_wall_ms=prof_wall, device_busy_ms=prof_busy,
-          device_busy_share=prof_busy / prof_wall, top_device_ops=repr(prof_top),
-          within0=int(count[0]), mean_rmsd=float(np.mean(rmsd)), parity_diff=parity,
-          rmsd_max_abs_err_vs_cpu=rmsd_err, brute_sample=BRUTE_SAMPLE,
-          brute_hits=int(want.sum()), brute_mismatch=brute_mismatch,
-          brute_min_rel_gap=float(np.abs(dmin / CUTOFF - 1).min()), brute_s=round(t_brute, 3),
-          kernel_launches=kernel_launches, no_sync_window=True, window_enqueue_ms=enqueue_ms)
-    if parity or brute_mismatch or rmsd_err > 1e-5:
-        raise AssertionError(f"dodecahedron parity failed: parity_diff={parity} "
-                             f"brute_mismatch={brute_mismatch} rmsd_err={rmsd_err}")
-    return path, caps0, count, check
+          frames=DODECA_FRAMES, window=DODECA_WINDOW, caps_tier0=headline.caps_for(*caps0, 0),
+          **{k: v for k, v in ghost.items() if k != "results"},
+          corrections={k: v for k, v in corr.items() if k != "results"},
+          ghost_over_corrections_fps=ghost["e2e_fps_median"] / corr["e2e_fps_median"],
+          route_mask_diffs=route_diffs, route_mask_diffs_outside_band=route_far,
+          within0=int(ghost["results"][1][0]), mean_rmsd=float(np.mean(ghost["results"][0])),
+          brute_sample=BRUTE_SAMPLE, brute_hits=int(want.sum()), brute_mismatch=brute_mismatch,
+          brute_min_rel_gap=float(np.abs(dmin / CUTOFF - 1).min()), brute_s=round(t_brute, 3))
+    bad = [k for k in routes if routes[k]["parity_diff"] or routes[k]["rmsd_max_abs_err_vs_cpu"]
+           > 1e-5]
+    if bad or route_far or brute_mismatch:
+        raise AssertionError(f"dodecahedron parity failed: routes {bad}, "
+                             f"route_mask_diffs_outside_band={route_far}, "
+                             f"brute_mismatch={brute_mismatch}")
+    # The compiled selection's correction route is held against this one.
+    return (path, caps0, *corr["results"][1:])
 
 
 # ---------------------------------------------------------------- phase 9

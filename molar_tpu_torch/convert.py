@@ -89,14 +89,25 @@ def from_numpy(ref_coords, masses, protein_idx, box_matrix, cutoff, caps, dims, 
     """Build the headline :class:`~molar_tpu_torch.headline.FitWithinWindow`
     on ``device`` from numpy inputs. ``caps`` is ``(cap, tgt_cap,
     max_tgt_cells)``. The route is picked here, on the host, from the numpy
-    box: a skewed box takes the triclinic correction path; an orthorhombic
-    one takes the row kernel with ``search="rows"`` and the ghost-slab
-    kernel with ``search="ghost"``."""
-    from .headline import FitWithinWindow
+    box and the grid: an orthorhombic box takes the ghost-slab kernels with
+    ``search="ghost"`` and the row kernel with ``search="rows"``. A skewed
+    box keeps ``"ghost"`` where every cell of ``dims`` is at least a cutoff
+    thick between opposite faces (``dims`` no finer than
+    :func:`~molar_tpu_torch.ops.neighbor.grid_dims_for` on every axis; the
+    window is fully periodic): every periodic image within the cutoff is
+    then a +-1-cell lattice shift, which the ghost stencil visits. Any
+    other skewed box, and ``search="rows"`` (whose per-axis image is
+    orthorhombic only) on one, takes the triclinic correction path, which
+    ``search="corrections"`` asks for on any box."""
+    from .headline import SEARCHES, FitWithinWindow
+    from .ops.neighbor import grid_dims_for
 
-    if search not in ("ghost", "rows"):
-        raise ValueError(f"search must be 'ghost' or 'rows', got {search!r}")
-    if PeriodicBox(box_matrix).is_triclinic:
+    if search not in SEARCHES:
+        raise ValueError(f"search must be one of {SEARCHES}, got {search!r}")
+    box = PeriodicBox(box_matrix)
+    skewed = box.is_triclinic
+    if skewed and not (search == "ghost"
+                       and all(d <= g for d, g in zip(dims, grid_dims_for(box, cutoff)))):
         search = "corrections"
     cap, tgt_cap, max_tgt_cells = caps
     return FitWithinWindow(
@@ -109,6 +120,7 @@ def from_numpy(ref_coords, masses, protein_idx, box_matrix, cutoff, caps, dims, 
         tgt_cap=int(tgt_cap),
         search=search,
         max_tgt_cells=int(max_tgt_cells),
+        skewed=skewed,
     ).to(device)
 
 

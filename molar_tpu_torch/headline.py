@@ -7,10 +7,11 @@ against that selection, its count, and a uint32 membership checksum
 ``sum(idx + 1)`` mod 2^32 that catches any set difference, not just a count
 difference. The search takes one of three routes (:data:`SEARCHES`), fixed
 when the window function is built (:func:`convert.from_numpy` picks it from
-the box): the ghost-slab CUDA kernels (binning and stencil, once per
-window), the per-pair min-image CUDA kernel over the same binning (once per
-window; orthorhombic boxes, full PBC), or the triclinic correction path
-(any box, correction candidates from each frame's own box).
+the box and the grid): the ghost-slab CUDA kernels (binning and stencil,
+once per window; any box whose grid cells are at least a cutoff thick),
+the per-pair min-image CUDA kernel over the same binning (once per window;
+orthorhombic boxes, full PBC), or the triclinic correction path (any box,
+correction candidates from each frame's own box, frame by frame).
 """
 
 from __future__ import annotations
@@ -149,12 +150,15 @@ class FitWithinWindow(nn.Module):
     Buffers: ``ref`` (n_sel, 3), ``masses`` (n_sel,), ``protein_idx``
     (n_sel,) int64, and for the correction route ``ijk`` (26, 3), the
     lattice combinations. Static: ``cutoff``, ``dims``, ``cap``,
-    ``tgt_cap``, ``search`` (one of :data:`SEARCHES`) and, for the
-    correction route, ``max_tgt_cells`` (its sparse-target slots).
+    ``tgt_cap``, ``search`` (one of :data:`SEARCHES`), for the correction
+    route ``max_tgt_cells`` (its sparse-target slots), and ``skewed``,
+    whether the box the route was picked for is skewed (a window of such a
+    box that the ghost route takes adds to the counter
+    ``fit_within.skewed_kernel_windows``).
     """
 
     def __init__(self, ref, masses, protein_idx, cutoff: float, dims, cap: int, tgt_cap: int,
-                 search: str = "ghost", max_tgt_cells: int = 512):
+                 search: str = "ghost", max_tgt_cells: int = 512, skewed: bool = False):
         super().__init__()
         if search not in SEARCHES:
             raise ValueError(f"search must be one of {SEARCHES}, got {search!r}")
@@ -169,6 +173,7 @@ class FitWithinWindow(nn.Module):
         self.tgt_cap = tgt_cap
         self.search = search
         self.max_tgt_cells = max_tgt_cells
+        self.skewed = skewed
 
     def frame_corrections(self, boxes):
         """(B, 26, 3) correction candidates of each frame's box: ``i*a + j*b
@@ -204,6 +209,8 @@ class FitWithinWindow(nn.Module):
         overflow bool), each of shape (B,). Its four stages are the spans
         ``fit_within.decode``, ``.fit``, ``.search`` (:meth:`masks`) and
         ``.checksum`` (:mod:`~molar_tpu_torch.tracing`)."""
+        if self.skewed and self.search == "ghost":
+            tracing.count("fit_within.skewed_kernel_windows")
         with tracing.span("fit_within.decode"):
             coords = decode_window_coords(transport)
         with tracing.span("fit_within.fit"):

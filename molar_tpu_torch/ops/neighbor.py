@@ -33,7 +33,12 @@ scatter slots) — callers retry at a larger capacity.
 A skewed box's grid is sized from its perpendicular cell heights
 (:func:`grid_dims_for`), not from its vector lengths: a slab of
 ``length / n`` is thinner than the cutoff when the box is skewed, and the
-+-1 stencil then misses pairs two cells apart.
++-1 stencil then misses pairs two cells apart. On the height-sized grid a
+displacement within the cutoff moves each fractional coordinate by at most
+one cell, so every in-cutoff image is a +-1-cell lattice shift and the
+ghost-slab search is exact on a skewed box too; the correction path stays
+the plain reference of skewed boxes and the route of a partially periodic
+one.
 
 Contact lists (:func:`contact_pairs_dense`, :func:`contact_pairs` and their
 window forms) are fixed-capacity: ``(max_pairs, 2)`` int32 global indices
@@ -419,8 +424,12 @@ def within_mask_window(
     ``tgt_idx`` int64; ``boxes``/``invs`` (B, 3, 3), read on the coords'
     device (no host read, no host sync).
 
-    Asserts orthorhombic boxes (or ones whose in-cutoff images are the
-    +-1-cell lattice shifts). CUDA tensors take the two kernels of
+    Asserts a grid whose cells are at least a cutoff thick between
+    opposite faces in every frame's box, which :func:`grid_dims_for` gives
+    for any box, skewed or not: every periodic image within the cutoff is
+    then a +-1-cell lattice shift, and the stencil visits each (the
+    correction path rests on the same precondition, over the same
+    stencil). CUDA tensors take the two kernels of
     :mod:`.neighbor_ghost` (two launches for the whole window); CPU
     tensors, or ``plain=True`` on any device, the plain twin frame by frame.
     """
@@ -462,12 +471,13 @@ def within_mask(
     partner in ``tgt_idx`` within ``cutoff`` under periodic images. One
     frame; ``box``/``inv`` are (3, 3) tensors on the coords' device.
 
-    ``corrections is None`` asserts an orthorhombic box (or one whose
-    in-cutoff images are the +-1-cell lattice shifts) and runs the
-    ghost-slab search, :func:`within_mask_window` on a window of one
-    (``plain`` runs the kernels' plain twin in their place). For a skewed
-    box pass its ``(K, 3)`` correction candidates (on the device) and grid
-    ``dims`` from :func:`grid_dims_for`; ``max_tgt_cells`` then selects the
+    ``corrections is None`` runs the ghost-slab search,
+    :func:`within_mask_window` on a window of one (``plain`` runs the
+    kernels' plain twin in their place), and asserts a grid whose cells
+    are at least a cutoff thick between opposite faces (:func:`grid_dims_for`
+    gives one for any box). Both regimes rest on that precondition. Given a
+    skewed box's ``(K, 3)`` correction candidates (on the device), the
+    per-pair min-image path runs instead; ``max_tgt_cells`` then selects the
     sparse-target variant with that many occupied-cell slots (overflow
     beyond them raises the flag). Returns (mask, overflow flag); the mask
     is undefined when the flag is set.

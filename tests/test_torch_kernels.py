@@ -10,7 +10,10 @@ windows of frames each in its own box, in the tiled and the block-per-cell
 launch), and require each mask, overflow flag and cell's member set to
 equal the plain twin's exactly; they also
 hold the triclinic correction path (plain torch) on the card against the
-CPU on a rhombic dodecahedron, with host syncs made errors, the compiled
+CPU on a rhombic dodecahedron, with host syncs made errors, the ghost
+kernels on skewed, fully periodic windows (dodecahedra, one rescaled a
+frame, and a skewed box with a 2-cell axis) against the plain twin exactly
+and the correction route but at the cutoff, the compiled
 selections of ``selection/compiled.py`` (window functions over a 4-frame
 window, in a cube and in a dodecahedron) against the same functions on the
 CPU, mask for mask, with host syncs made errors and one ``cell_bins`` and
@@ -41,8 +44,8 @@ from molar_tpu_torch.core.pbc import PeriodicBox
 from molar_tpu_torch.ops import neighbor, neighbor_ghost, neighbor_rows
 
 from torch_scenes import (
-    GHOST_SCENES, ROW_SCENES, SELECTION_TEXTS, TIE_MEMBERS, blocked_members, cell_members,
-    dodeca_scene, scene, selection_scene, window,
+    GHOST_SCENES, ROW_SCENES, SELECTION_TEXTS, SKEWED_SCENES, TIE_MEMBERS, blocked_members,
+    cell_members, dodeca_scene, outside_band, scene, selection_scene, skewed_window, window,
 )
 
 
@@ -373,6 +376,47 @@ def test_correction_path_on_card_matches_cpu_without_sync(cuda_device, sparse):
     want, wofl = run("cpu")
     assert ofl is wofl is False and got.any()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SKEWED_SCENES)
+def test_skewed_ghost_window_on_card(cuda_device, name):
+    """A skewed, fully periodic window through the two kernels (one launch
+    each): masks, flags and each cell's members equal the plain twin's on
+    the card and on the CPU exactly, and the masks equal the correction
+    route's on the card but for sources within 1e-6 relative of the
+    cutoff."""
+    coords, tgt, boxes, invs, dims, cap, tcap = skewed_window(name)
+
+    def search(device, **kw):
+        d = [torch.as_tensor(a).to(device) for a in (coords, tgt, boxes, invs)]
+        return neighbor.within_mask_window(d[0], None, d[1], 0.5, d[2], d[3], dims, cap, tcap,
+                                           **kw)
+
+    before = neighbor_ghost.cell_bins.launches, neighbor_ghost.within_ghost.launches
+    masks, ofl = search(cuda_device)
+    torch.cuda.synchronize()
+    assert neighbor_ghost.cell_bins.launches == before[0] + 1
+    assert neighbor_ghost.within_ghost.launches == before[1] + 1
+    twin, tofl = search(cuda_device, plain=True)
+    cpu, cofl = search("cpu")
+    assert not ofl.any() and torch.equal(ofl, tofl) and torch.equal(ofl.cpu(), cofl)
+    assert torch.equal(masks, twin) and torch.equal(masks.cpu(), cpu) and masks.any()
+    d = [torch.as_tensor(a).to(cuda_device) for a in (coords, tgt, boxes, invs)]
+    src_rec, tgt_rec, counts, _ = neighbor_ghost.cell_bins(d[0], None, *d[1:], dims, cap, tcap)
+    for f in range(coords.shape[0]):
+        want = blocked_members(d[0][f], None, d[1], d[2][f], d[3][f], dims, cap, tcap)
+        for k, (rec, (pos, xyz)) in enumerate(zip((src_rec[f], tgt_rec[f]), want)):
+            got_pos, got_xyz = cell_members(rec, counts[f, k], (cap, tcap)[k])
+            assert torch.equal(got_pos, pos) and torch.equal(got_xyz, xyz)
+        corr = torch.as_tensor(PeriodicBox(boxes[f]).padded_corrections()).to(cuda_device)
+        cmask, cofl = neighbor.within_mask(d[0][f], None, d[1], 0.5, d[2][f], d[3][f],
+                                           corrections=corr, dims=dims, cap=cap, tgt_cap=tcap,
+                                           max_tgt_cells=int(np.prod(dims)))
+        assert not bool(cofl)
+        far, dmin = outside_band(masks[f].cpu().numpy(), cmask.cpu().numpy(), coords[f], tgt,
+                                 boxes[f], 0.5)
+        assert far.size == 0, (f, far[:10], dmin[:10])
 
 
 def _fit_rmsd64(frames, ref, masses):

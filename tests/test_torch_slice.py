@@ -167,9 +167,10 @@ def test_caps_for_follows_bench_tiers():
 
 
 def test_from_numpy_builds_buffers_and_rejects_triclinic(system):
-    """The buffers and the route: a skewed box is never handed to either
-    orthorhombic kernel (it takes the correction path), and an unknown
-    search is rejected."""
+    """The buffers and the route: a skewed box is never handed to the
+    orthorhombic row kernel, nor to the ghost kernels on a grid finer than
+    its cell heights (it takes the correction path); on the height-sized
+    grid it keeps the ghost route. An unknown search is rejected."""
     s = system
     args = (s["coords0"][s["pidx"]], s["masses"][s["pidx"]], s["pidx"])
     model = convert.from_numpy(*args, s["box"].matrix, CUTOFF, (48, 32, 512), s["dims"], "cpu")
@@ -182,11 +183,16 @@ def test_from_numpy_builds_buffers_and_rejects_triclinic(system):
     assert rows.search == "rows"
     skew = s["box"].matrix.copy()
     skew[0, 1] = 0.3
-    for search in ("ghost", "rows"):
-        tric = convert.from_numpy(*args, skew, CUTOFF, (48, 32, 768), s["dims"], "cpu",
+    assert grid_dims_for(PeriodicBox(skew), CUTOFF) == s["dims"]
+    finer = tuple(d + 1 for d in s["dims"])
+    for search, dims in (("ghost", finer), ("rows", s["dims"]), ("corrections", s["dims"])):
+        tric = convert.from_numpy(*args, skew, CUTOFF, (48, 32, 768), dims, "cpu",
                                   search=search)
         assert (tric.search, tric.max_tgt_cells) == ("corrections", 768)
         assert {n for n, _ in tric.named_buffers()} == {"ref", "masses", "protein_idx", "ijk"}
+    kept = convert.from_numpy(*args, skew, CUTOFF, (48, 32, 768), s["dims"], "cpu")
+    assert kept.search == "ghost" and kept.skewed
+    assert {n for n, _ in kept.named_buffers()} == {"ref", "masses", "protein_idx"}
     with pytest.raises(ValueError):
         convert.from_numpy(*args, s["box"].matrix, CUTOFF, (48, 32, 512), s["dims"], "cpu",
-                           search="corrections")
+                           search="dense")

@@ -13,9 +13,11 @@ The JAX package sizes skewed grids from the box vectors' lengths, which
 makes cells thinner than the cutoff; one test pins that the length-sized
 grid misses atoms (in both packages alike) and the height-sized one does
 not. The slice test streams a small dodecahedron XTC through
-``FitWithinWindow`` and holds its masks (exactly) and RMSDs (to 1e-5)
-against a JAX-CPU window function fed the same windows, corrections built
-per frame from each frame's box, and the same dims.
+``FitWithinWindow`` on the correction route (asked for by name: the box's
+default is the ghost route) and holds its masks (exactly) and RMSDs (to
+1e-5) against a JAX-CPU window function fed the same windows, corrections
+built per frame from each frame's box, and the same dims; the same stream
+through the default route must equal it but for sources at the cutoff.
 """
 
 import numpy as np
@@ -39,7 +41,7 @@ from molar_tpu_torch.ops import neighbor
 from molar_tpu_torch.ops.neighbor import grid_dims, grid_dims_for
 from molar_tpu_torch.tasks.trajectory import TrajectoryReader, decode_window_coords
 
-from torch_scenes import brute_within, dodeca_scene, dodecahedron
+from torch_scenes import brute_within, dodeca_scene, dodecahedron, outside_band
 
 CUTOFF = 0.5
 #: A source may leave the brute-force set only this close to the cutoff.
@@ -273,8 +275,10 @@ def _jax_tric_window_fn(s, caps):
 def test_fit_within_window_dodecahedron_matches_jax(dodeca_system):
     s = dodeca_system
     caps = headline.caps_for(*s["caps0"], 0)
+    # Pinned by name: the default route of this box is the ghost route.
     model = convert.from_numpy(s["coords0"][s["pidx"]], s["masses"][s["pidx"]], s["pidx"],
-                               s["box"].matrix, CUTOFF, caps, s["dims"], "cpu")
+                               s["box"].matrix, CUTOFF, caps, s["dims"], "cpu",
+                               search="corrections")
     assert model.search == "corrections" and s["dims"] == (4, 4, 4)
     corr = model.frame_corrections(torch.from_numpy(s["box"].matrix)[None])[0].numpy()
     pruned = s["box"].corrections[s["box"].corrections.any(axis=1)]
@@ -291,6 +295,39 @@ def test_fit_within_window_dodecahedron_matches_jax(dodeca_system):
         np.testing.assert_array_equal(masks.numpy(), np.asarray(jmasks))
         np.testing.assert_allclose(rmsd.numpy(), np.asarray(jrmsd), atol=1e-5, rtol=0)
         assert torch.equal(count, masks.sum(dim=1)) and (count > 0).all()
+        n_frames += len(window[4])
+    assert n_frames == N_FRAMES
+
+
+def test_fit_within_window_dodecahedron_ghost_route(dodeca_system):
+    """The same stream through the default route, the ghost kernels' plain
+    twin: RMSDs equal the correction route's bit for bit, masks equal its
+    and the float64 brute force's but for sources within REL_TIE of the
+    cutoff."""
+    s = dodeca_system
+    caps = headline.caps_for(*s["caps0"], 0)
+    args = (s["coords0"][s["pidx"]], s["masses"][s["pidx"]], s["pidx"], s["box"].matrix, CUTOFF,
+            caps, s["dims"], "cpu")
+    ghost = convert.from_numpy(*args)
+    corr = convert.from_numpy(*args, search="corrections")
+    assert (ghost.search, corr.search) == ("ghost", "corrections")
+    n_frames = 0
+    for window in TrajectoryReader([s["path"]]).iter_windows(WINDOW, quantized="delta"):
+        transport, boxes, invs = convert.transport_to_torch(window, "cpu")
+        coords = decode_window_coords(transport)
+        masks, ofl = ghost.masks(coords, boxes, invs)
+        cmasks, cofl = corr.masks(coords, boxes, invs)
+        assert not ofl.any() and not cofl.any() and masks.any()
+        rmsd, count, _, _ = ghost(transport, boxes, invs)
+        crmsd, _, _, _ = corr(transport, boxes, invs)
+        assert torch.equal(rmsd, crmsd) and torch.equal(count, masks.sum(dim=1))
+        for f in range(coords.shape[0]):
+            c, m = coords[f].numpy(), boxes[f].numpy()
+            want, _ = brute_within(c, np.arange(s["n"]), s["pidx"], m, CUTOFF)
+            for other in (cmasks[f].numpy(), want):
+                far, dmin = outside_band(masks[f].numpy(), other, c, s["pidx"], m, CUTOFF,
+                                         REL_TIE)
+                assert far.size == 0, (far[:10], dmin[:10])
         n_frames += len(window[4])
     assert n_frames == N_FRAMES
 

@@ -215,6 +215,69 @@ def brute_within(coords, src, tgt, matrix, cutoff: float, chunk: int = 64):
     return dmin <= cutoff, dmin
 
 
+#: Skewed, fully periodic windows of the ghost route (:func:`skewed_window`).
+SKEWED_SCENES = ["dodeca3", "dodeca4", "dodeca6", "dodeca4_rescaled", "skew_2cell"]
+
+#: A skewed box whose height-sized grid at a 0.5 nm cutoff is 2 x 3 x 4.
+SKEW_2CELL = np.array([[1.3, 0.4, -0.3], [0.0, 2.0, 0.5], [0.0, 0.0, 2.4]], dtype=np.float32)
+
+
+def skewed_window(name, n_frames=None, seed: int = 0, cutoff: float = 0.5):
+    """A window of ``n_frames`` frames (default 6 for ``dodeca4_rescaled``,
+    whose box then both grows and shrinks, 3 otherwise) in a skewed, fully
+    periodic box ->
+    (coords (B, N, 3) f32, tgt indices, boxes (B, 3, 3) f32, invs, dims,
+    cap, tgt_cap). ``dodeca<d>``: :func:`dodeca_scene` at image distance
+    ``d``, each frame after the first moved by N(0, 0.05) nm (not wrapped);
+    ``dodeca4_rescaled``: :func:`selection_scene`'s dodecahedron, box and
+    coordinates scaled by 1 + 1 % sin(k) in frame k, every fifth atom a
+    target; ``skew_2cell``: atoms uniform at 100 per nm^3 in
+    :data:`SKEW_2CELL`, moved likewise. ``dims`` is the height-sized grid
+    of the thinnest frame on each axis (every cell of every frame at least
+    ``cutoff`` thick); ``cap`` / ``tgt_cap`` the window's largest cell
+    occupancies, exact."""
+    from molar_tpu_torch.core.pbc import PeriodicBox
+    from molar_tpu_torch.ops.neighbor import estimate_caps, grid_dims_for
+
+    rng = np.random.default_rng(seed)
+    if n_frames is None:
+        n_frames = 6 if name == "dodeca4_rescaled" else 3
+    if name == "dodeca4_rescaled":
+        _, coords, boxes, _ = selection_scene("dodecahedron", n_frames, seed)
+        tgt = np.arange(0, coords.shape[1], 5)
+    else:
+        if name == "skew_2cell":
+            m = SKEW_2CELL
+            n = int(round(100.0 * abs(np.linalg.det(m.astype(np.float64)))))
+            c0 = (rng.uniform(0, 1, (n, 3)) @ m.T.astype(np.float64)).astype(np.float32)
+            tgt = np.sort(rng.choice(n, n // 60, replace=False))
+        else:
+            c0, tgt, m = dodeca_scene(float(name[len("dodeca"):]), seed)
+        coords = c0[None] + rng.normal(0, 0.05, (n_frames, *c0.shape)).astype(np.float32)
+        coords[0] = c0
+        boxes = np.repeat(m[None], n_frames, axis=0)
+    invs = np.linalg.inv(boxes.astype(np.float64)).astype(np.float32)
+    dims = tuple(np.min([grid_dims_for(PeriodicBox(b), cutoff) for b in boxes], axis=0).tolist())
+    caps = [estimate_caps(c, inv, dims, tgt, margin=1.0, round_to=1)[:2]
+            for c, inv in zip(coords, invs)]
+    cap, tgt_cap = np.max(caps, axis=0).tolist()
+    return coords, tgt, boxes, invs, dims, int(cap), int(tgt_cap)
+
+
+def outside_band(got, want, coords, tgt, matrix, cutoff: float, rel: float = 1e-6):
+    """The atoms where the masks ``got`` and ``want`` (over every atom of
+    one frame) differ and whose float64 least distance to the targets
+    (:func:`brute_within`) lies further than ``rel`` relative from the
+    cutoff: a difference that float32 rounding at the cutoff cannot
+    explain. -> (atom indices, their least distances)."""
+    differ = np.flatnonzero(np.asarray(got) != np.asarray(want))
+    if not differ.size:
+        return differ, np.zeros(0)
+    _, dmin = brute_within(coords, differ, tgt, matrix, cutoff)
+    far = np.abs(dmin / cutoff - 1) > rel
+    return differ[far], dmin[far]
+
+
 # The bars of one membrane window's outputs against another's (the card
 # against the CPU; the port against the JAX package): (rtol, atol) of each
 # float output, compared on valid lipids only (an invalid lipid's area,
