@@ -87,23 +87,24 @@ def warm_ranges(n_file: int, window: int) -> list[tuple[int, int]]:
 @contextlib.contextmanager
 def pipelines():
     """Yield a list that receives every ``WindowPipeline`` the program makes
-    inside the block, so that its ``timings`` (the program's own spans) can
-    be read after a run; the class is restored on exit."""
-    from molar_tpu_torch.tasks import trajectory
+    inside the block, under whatever name its module imported the class,
+    so that its ``timings`` (the program's own spans) can be read after a
+    run; the class's ``__init__`` is wrapped for the block and restored on
+    exit."""
+    from molar_tpu_torch.tasks.trajectory import WindowPipeline
 
     made = []
-    base = trajectory.WindowPipeline
+    init = WindowPipeline.__init__
 
-    class Recorded(base):
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            made.append(self)
+    def recorded(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
 
-    trajectory.WindowPipeline = Recorded
+    WindowPipeline.__init__ = recorded
     try:
         yield made
     finally:
-        trajectory.WindowPipeline = base
+        WindowPipeline.__init__ = init
 
 
 @contextlib.contextmanager
@@ -154,7 +155,10 @@ class LayerRun:
     ``frames`` and ``window_s`` of the timed window; ``spans``: host seconds
     by name (the program's own timings and the benchmark's spans);
     ``busy_s`` and ``traced_s``: the device's busy seconds and the length of
-    the traced window; ``card``: the card's name and power limit;
+    the traced window; ``untraced``: the end-to-end values (``fps``, ...) of
+    an untraced window run before the traced one, where a per-layer metric
+    of the cell reads the host clock (else empty); ``card``: the card's name
+    and power limit;
     ``device_ms(part)`` and ``work(part)``: a part of the program timed on
     the card on a resident window, and the work that window owes it
     (``flops``, ``bytes``), or None where this run has no such part;
@@ -165,6 +169,7 @@ class LayerRun:
     spans: dict = field(default_factory=dict)
     busy_s: Optional[float] = None
     traced_s: Optional[float] = None
+    untraced: dict = field(default_factory=dict)
     card: str = ""
     parts: dict = field(default_factory=dict)
     notes: list = field(default_factory=list)

@@ -1,7 +1,8 @@
 """``BENCHMARK.json`` and the files it names: each configuration, traffic mix
 and per-layer metric is found by its name, in a file of its own.
 
-* ``portbench/configs/<config>.json``: the system's sizes and source;
+* ``portbench/configs/<config>.json``: the system's sizes and source, and
+  ``portbench/tiny/<config>.json`` the same cut to a size a CPU test holds;
 * ``portbench/traffic/<traffic>.json``: the mix's parameters, with
   ``"driver"`` naming the general driver ``portbench/drivers/<driver>.py``
   that generates it, runs the timed window and checks it;
@@ -39,12 +40,29 @@ def cell(bench: dict, name: str) -> dict:
     raise KeyError(f"no workload named {name!r} in BENCHMARK.json")
 
 
-def config(bench: dict, name: str) -> dict:
+def config(bench: dict, name: str, root: pathlib.Path = ROOT) -> dict:
     for c in bench["configs"]:
         if c["name"] == name:
-            with open(ROOT / c["file"]) as fh:
+            with open(root / c["file"]) as fh:
                 return json.load(fh)
     raise KeyError(f"no configuration named {name!r} in BENCHMARK.json")
+
+
+def tiny_file(name: str, root: pathlib.Path = ROOT) -> pathlib.Path:
+    """Where configuration ``name`` cut to a size a CPU test holds is kept:
+    ``portbench/tiny/<name>.json`` under the checkout ``root``."""
+    return root / "portbench" / "tiny" / f"{name}.json"
+
+
+def tiny_config(name: str, root: pathlib.Path = ROOT) -> dict:
+    """Configuration ``name`` at its tiny size (the benchmark's own CPU
+    tests): the keys of its configuration file, cut, after an ``about``
+    line that says what was cut."""
+    path = tiny_file(name, root)
+    if not path.is_file():
+        raise FileNotFoundError(f"configuration {name!r} has no tiny size: expected {path}")
+    with open(path) as fh:
+        return json.load(fh)
 
 
 def traffic(name: str) -> dict:

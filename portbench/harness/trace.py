@@ -82,10 +82,14 @@ def label_gaps(idle, host_events) -> list[tuple[str, float]]:
 
 class Trace:
     """``with Trace(on) as tr: ...`` profiles the block when ``on``; then
-    ``tr.window_s``, ``tr.busy_s``, ``tr.device_ops`` and ``tr.idle_gaps``."""
+    ``tr.window_s``, ``tr.busy_s``, ``tr.device_ops`` and ``tr.idle_gaps``.
+    ``device_only`` records the device's activity alone (no host events, so
+    no gap labels): the busy time of an untraced window, at the cost of the
+    profiler's device records only."""
 
-    def __init__(self, on: bool):
+    def __init__(self, on: bool, device_only: bool = False):
         self.on = on
+        self.device_only = device_only
         self.window_s = None
         self.busy_s = None
         self.device_ops: list = []
@@ -98,7 +102,10 @@ class Trace:
             from torch.profiler import ProfilerActivity, profile
 
             torch.cuda.synchronize()
-            self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            activities = [ProfilerActivity.CUDA]
+            if not self.device_only:
+                activities.insert(0, ProfilerActivity.CPU)
+            self._prof = profile(activities=activities)
             self._prof.__enter__()
         return self
 

@@ -13,7 +13,13 @@ reference. The last line of standard output is one JSON object (``correct``,
 ``breakdown``, and last ``checks``: each number compared and its limit);
 the same numbers are the last lines of standard error. With ``--trace 0``
 the metrics are the cell's end-to-end metrics, with ``--trace 1`` its
-per-layer metrics, read under ``torch.profiler``.
+per-layer metrics, read under ``torch.profiler``. An end-to-end metric read
+from the device trace (``source`` ``device_trace``) has the ``--trace 0``
+window run under a profiler of the device's activity alone; a per-layer
+metric read from the host clock (``source`` ``host_clock``) has the
+``--trace 1`` run measure an untraced window before the traced one. Run as
+a script, it keeps the bytecode of every module it imports under
+``build/portbench/pycache`` in the checkout.
 
 It exits non-zero and prints no result without enough CUDA cards, outside
 a checkout that holds the program, or when a module of JAX or of the JAX
@@ -67,6 +73,16 @@ def _caches() -> None:
     os.environ.setdefault("USE_FLAX", "0")
 
 
+def _bytecode_cache() -> None:
+    """Compiled bytecode of every module the run imports, torch's included,
+    at a fixed path inside the checkout. Where the interpreter is told not
+    to write bytecode and the installed packages hold none, every run would
+    compile torch's sources again: seconds of set-up that vary from run to
+    run."""
+    sys.pycache_prefix = str(ROOT / "build" / "portbench" / "pycache")
+    sys.dont_write_bytecode = False
+
+
 def _card(torch) -> str:
     """The card's name and power limit, as ``nvidia-smi`` reads them."""
     try:
@@ -101,6 +117,7 @@ def main(argv=None, *, card_check: bool = True, bench: dict | None = None) -> in
 
     import torch
 
+    t_import = time.perf_counter()
     if card_check:
         if not torch.cuda.is_available() or torch.cuda.device_count() < int(cell["chips"]):
             print(f"portbench: {args.workload} needs {cell['chips']} CUDA card(s); "
@@ -116,21 +133,34 @@ def main(argv=None, *, card_check: bool = True, bench: dict | None = None) -> in
     drivers = spec.driver(traffic["driver"])
     e2e = spec.metrics_of(bench, "end_to_end", cell["name"])
     per_layer = spec.metrics_of(bench, "per_layer", cell["name"])
+    # The device's busy time over the untraced window, where an end-to-end
+    # metric reads it; a rate of the untraced window, where a per-layer one
+    # reads the host clock.
+    device_e2e = cuda and not args.trace and any(m["source"] == "device_trace" for m in e2e)
+    host_layer = bool(args.trace) and any(m["source"] == "host_clock" for m in per_layer)
 
     with _workdir() as workdir:
+        if cuda:
+            torch.zeros(1, device=device)  # the CUDA context
+        t_context = time.perf_counter()
         drv = drivers.Driver(config, traffic, args.seed, device, workdir)
         drv.setup()
         if cuda:
             torch.cuda.synchronize(device)
         setup_s = time.perf_counter() - T_START
-        with Trace(bool(args.trace) and cuda) as tr:
+        phases = (f"set-up {setup_s:.3f} s: imports {t_import - T_START:.3f}, CUDA context "
+                  f"{t_context - t_import:.3f}, inputs + program + warm-up "
+                  f"{T_START + setup_s - t_context:.3f}")
+        untraced = drv.window(args.seconds).e2e if host_layer else {}
+        with Trace((bool(args.trace) and cuda) or device_e2e, device_only=device_e2e) as tr:
             with tr.window():
                 win = drv.window(args.seconds, traced=bool(args.trace))
         peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-        metrics, notes = {}, list(win.notes)
+        metrics, notes = {}, [phases, *win.notes]
         if args.trace:
             run = drv.layer_run()
             run.busy_s, run.traced_s = tr.busy_s, tr.window_s
+            run.untraced = dict(untraced)
             run.card = _card(torch) if cuda else "cpu"
             for m in per_layer:
                 value = spec.reader(m["name"]).read(run)
@@ -140,7 +170,11 @@ def main(argv=None, *, card_check: bool = True, bench: dict | None = None) -> in
             del run
         else:
             values = {**win.e2e, "setup_s": setup_s}
+            if device_e2e and win.attempted:
+                values["device_ms_per_frame"] = 1e3 * tr.busy_s / win.attempted
             for m in e2e:
+                if m["source"] == "device_trace" and not cuda:
+                    continue  # no device trace without a card (the CPU tests)
                 value = values[spec.quantity(m["name"])]
                 metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
         drv.release()
@@ -183,4 +217,5 @@ def main(argv=None, *, card_check: bool = True, bench: dict | None = None) -> in
 
 
 if __name__ == "__main__":
+    _bytecode_cache()
     raise SystemExit(main())

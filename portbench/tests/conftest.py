@@ -1,13 +1,14 @@
 """Fixtures of the benchmark's own CPU tests: the benchmark file with every
-configuration cut to a size a CPU test holds (the shapes kept: a protein
-ball in water, an orthorhombic box and a dodecahedron)."""
+configuration cut to its tiny size (``portbench/tiny/<config>.json``, the
+shapes kept: a protein ball in water, an orthorhombic box and a
+dodecahedron), and the cells the tests run, read from ``BENCHMARK.json``."""
 
 from __future__ import annotations
 
 import copy
 import json
-import sys
 import pathlib
+import sys
 
 import pytest
 
@@ -15,26 +16,19 @@ ROOT = pathlib.Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-TINY = {
-    "apoa1_92k": {"name": "apoa1_92k", "atoms": 3000,
-                  "box": {"shape": "orthorhombic", "sides_nm": [3.2, 3.2, 3.0]},
-                  "composition": {"protein_atoms": 300, "waters": 896,
-                                  "ions": [["NA", 6], ["CL", 6]]},
-                  "structure_seed": 0, "trajectory": {"frames": 12, "sigma_nm": 0.02,
-                                 "protein_rms_nm": 0.05, "xtc_precision": 1000}},
-    "rnase_dodec": {"name": "rnase_dodec", "atoms": 3000,
-                    "box": {"shape": "dodecahedron", "image_distance_nm": 3.49},
-                    "composition": {"protein_atoms": 200, "waters": 930,
-                                    "ions": [["CL", 10]]},
-                    "structure_seed": 0, "trajectory": {"frames": 12, "sigma_nm": 0.02,
-                                  "protein_rms_nm": 0.05, "xtc_precision": 1000}},
-}
+from portbench.harness import spec  # noqa: E402
 
 #: The stream's traffic in the orthorhombic box (the ghost route's kernels),
 #: which BENCHMARK.json has no cell of (PERF.md's open questions), added here
 #: so that the fit + within driver is tested on both routes.
 ORTHORHOMBIC = {"name": "apoa1_92k.align_within", "config": "apoa1_92k",
                 "traffic": "align_within", "chips": 1, "why": "test"}
+
+
+#: Every cell of ``BENCHMARK.json``, then the test-only orthorhombic stream:
+#: the cells whose tiny runs, tiny card runs and controls the tests make.
+CELLS = list(dict.fromkeys([w["name"] for w in spec.load_benchmark()["workloads"]]
+                           + [ORTHORHOMBIC["name"]]))
 
 
 def _with_orthorhombic(bench: dict) -> dict:
@@ -51,22 +45,23 @@ def _with_orthorhombic(bench: dict) -> dict:
 @pytest.fixture(scope="session")
 def full_bench():
     """``BENCHMARK.json`` as it is, with the orthorhombic stream's cell added."""
-    from portbench.harness import spec
-
     return _with_orthorhombic(copy.deepcopy(spec.load_benchmark()))
 
 
-@pytest.fixture(scope="session")
-def tiny_bench(tmp_path_factory):
-    from portbench.harness import spec
-
-    bench = copy.deepcopy(spec.load_benchmark())
-    tmp = tmp_path_factory.mktemp("configs")
+def tiny(bench: dict, root: pathlib.Path = spec.ROOT) -> dict:
+    """A copy of ``bench`` whose configurations are their tiny sizes, found
+    by name under the checkout ``root`` (this one by default). A
+    configuration without one points at the file it lacks, so that only its
+    own cells fail, on that name (and ``test_every_config_has_a_tiny_size``)."""
+    bench = copy.deepcopy(bench)
     for c in bench["configs"]:
-        path = tmp / f"{c['name']}.json"
-        path.write_text(json.dumps(TINY[c["name"]]))
-        c["file"] = str(path)
-    return _with_orthorhombic(bench)
+        c["file"] = str(spec.tiny_file(c["name"], root))
+    return bench
+
+
+@pytest.fixture(scope="session")
+def tiny_bench():
+    return _with_orthorhombic(tiny(spec.load_benchmark()))
 
 
 def run_cell(bench, cell: str, seed: int = 2**31 + 17, seconds: float = 1.0):

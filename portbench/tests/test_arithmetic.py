@@ -46,6 +46,8 @@ def _run(**kw):
     ("decode_ms_per_frame", dict(), None),
     ("device_idle_pct", dict(), None),
     ("search_roofline_pct", dict(), None),
+    ("stream_fps.skewed", dict(untraced={"fps": 3000.0}), 3000.0),
+    ("stream_fps", dict(), None),
 ])
 def test_readers(metric, run, want):
     got = spec.reader(metric).read(_run(**run))

@@ -15,6 +15,8 @@ import json
 
 import pytest
 
+from conftest import CELLS
+
 pytestmark = pytest.mark.cuda
 
 
@@ -25,9 +27,6 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda", 0)
-
-
-CELLS = ["rnase_dodec.align_within", "apoa1_92k.sasa", "apoa1_92k.align_within"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -53,3 +52,20 @@ def test_tiny_run_on_the_card_is_correct(tiny_bench, card, cell):
     res = json.loads(out.getvalue().strip().splitlines()[-1])
     assert rc == 0 and res["correct"], res["checks"]
     assert res["device"]["platform"] == "gpu" and res["device"]["busy_s"] > 0
+
+
+def test_a_device_only_trace_reads_busy_time(card):
+    """The profiler of the device's activity alone, as an end-to-end metric
+    read from the device trace uses it: busy seconds above 0 and within the
+    window."""
+    import torch
+
+    from portbench.harness.trace import Trace
+
+    x = torch.randn(2048, 2048, device=card)
+    with Trace(True, device_only=True) as tr:
+        with tr.window():
+            for _ in range(20):
+                x = x @ x / 2048
+            torch.cuda.synchronize(card)
+    assert 0 < tr.busy_s <= tr.window_s

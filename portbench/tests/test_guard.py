@@ -27,14 +27,10 @@ sys.addaudithook(lambda ev, args: opened.append(str(args[0])) if ev == "open" an
                  and isinstance(args[0], str) else None)
 import torch
 torch.set_num_threads(1)
-from conftest import TINY, _with_orthorhombic
-import copy, pathlib, tempfile
+from conftest import _with_orthorhombic, tiny
 from portbench.harness import spec
 from portbench import control, run
-bench = _with_orthorhombic(copy.deepcopy(spec.load_benchmark()))
-tmp = pathlib.Path(tempfile.mkdtemp())
-for c in bench["configs"]:
-    p = tmp / (c["name"] + ".json"); p.write_text(json.dumps(TINY[c["name"]])); c["file"] = str(p)
+bench = _with_orthorhombic(tiny(spec.load_benchmark()))
 for m in bench["per_layer"]:
     spec.reader(m["name"])
 for cell in [w["name"] for w in bench["workloads"]]:
@@ -98,3 +94,14 @@ def test_bare_benchmark_directory_gives_no_result(tmp_path):
                     ignore=shutil.ignore_patterns("__pycache__"))
     out = _cli(["--workload", "apoa1_92k.sasa", "--seed", "1", "--seconds", "1"], tmp_path)
     assert out.returncode != 0 and out.stdout == ""
+
+
+def test_the_bytecode_cache_lies_inside_the_checkout(monkeypatch):
+    """Run as a script, the harness writes and reads the bytecode of what it
+    imports under ``build/portbench/pycache`` of its checkout, whatever the
+    environment says of bytecode."""
+    monkeypatch.setattr(sys, "pycache_prefix", None)
+    monkeypatch.setattr(sys, "dont_write_bytecode", True)
+    run._bytecode_cache()
+    assert pathlib.Path(sys.pycache_prefix) == ROOT / "build" / "portbench" / "pycache"
+    assert not sys.dont_write_bytecode

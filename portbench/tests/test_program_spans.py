@@ -41,12 +41,12 @@ def test_reader_without_its_key(metric, spans):
 
 
 def test_every_new_reader_is_listed_in_its_cells():
+    """Every ``per_layer`` entry is reported in each cell its ``workloads``
+    lists, and its reader resolves by name."""
     bench = spec.load_benchmark()
-    cells = {"search_enqueue_ms_per_frame": "rnase_dodec.align_within",
-             "retry_pct": "apoa1_92k.sasa", "retry_pct.skewed": "rnase_dodec.align_within",
-             "device_allocs_per_window": "apoa1_92k.sasa",
-             "device_allocs_per_window.skewed": "rnase_dodec.align_within",
-             "sasa_lists_ms_per_frame": "apoa1_92k.sasa",
-             "sasa_arcs_ms_per_frame": "apoa1_92k.sasa"}
-    for metric, cell in cells.items():
-        assert metric in [m["name"] for m in spec.metrics_of(bench, "per_layer", cell)]
+    for m in bench["per_layer"]:
+        assert callable(spec.reader(m["name"]).read), m["name"]
+        for cell in m.get("workloads", ()):
+            spec.cell(bench, cell)
+            assert m["name"] in [x["name"] for x in spec.metrics_of(bench, "per_layer", cell)], \
+                (m["name"], cell)

@@ -13,7 +13,7 @@ from portbench.frozen import systems
 from portbench.reference import geometry
 from portbench.reference import sasa as ref_sasa
 
-from conftest import run_cell
+from conftest import CELLS, run_cell
 
 
 @pytest.fixture(autouse=True)
@@ -76,8 +76,7 @@ def test_sasa_against_the_port():
     assert float(one[0]) == pytest.approx(4 * np.pi * 0.09)
 
 
-@pytest.mark.parametrize("cell", ["apoa1_92k.align_within", "rnase_dodec.align_within",
-                                  "apoa1_92k.sasa"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_tiny_run_is_correct(tiny_bench, cell):
     res = run_cell(tiny_bench, cell)
     assert res["correct"], res["checks"]
@@ -85,3 +84,28 @@ def test_tiny_run_is_correct(tiny_bench, cell):
     assert list(res)[-1] == "checks"
     assert set(res["metrics"]) >= {"setup_s"}
     assert all(m["value"] > 0 for m in res["metrics"].values())
+
+
+def test_tiny_traced_run_reads_the_untraced_rate(tiny_bench):
+    """A cell with a per-layer metric read from the host clock: the traced
+    run measures an untraced window first, and reports its rate (the
+    cell's readers of device timings need a card, so only the host clock's
+    are kept here)."""
+    import contextlib
+    import copy
+    import io
+    import json
+
+    from portbench import run
+
+    cell = "rnase_dodec.align_within"
+    bench = copy.deepcopy(tiny_bench)
+    bench["per_layer"] = [m for m in bench["per_layer"] if m["source"] == "host_clock"]
+    assert any(cell in m["workloads"] for m in bench["per_layer"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        rc = run.main(["--workload", cell, "--seed", "5", "--seconds", "1", "--trace", "1"],
+                      card_check=False, bench=bench)
+    res = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert rc == 0 and res["correct"], res["checks"]
+    assert res["metrics"]["stream_fps.skewed"]["value"] > 0
