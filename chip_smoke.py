@@ -1997,8 +1997,9 @@ MEMBRANE_REPEATS = 3
 MEMBRANE_WINDOWS = (4, 8, 16, 32, 64)
 MEMBRANE_BLOCKS = (24, 25, 26, 27, 28)
 MEMBRANE_ENGINE_SIDES = (6, 12, 24, 48)
-MEMBRANE_STAGES = ("unwrap_markers", "patches", "normals", "smooth", "smooth.fit",
-                   "smooth.voronoi", "order")
+MEMBRANE_STAGES = ("membrane.unwrap_markers", "membrane.patches", "membrane.normals",
+                   "membrane.smooth", "membrane.smooth.fit", "membrane.smooth.voronoi",
+                   "membrane.order")
 # Operations of the window function, counted from membrane/device.py's code
 # (float operations and compares; gathers and the top-K selection not):
 # a head pair of the patch search (difference 3, orthorhombic image 12,
@@ -2162,7 +2163,8 @@ def _membrane_system(device, workdir, label, side, n_frames, window):
     bound = _bound(nbytes, flops)
     device_ms = sum(by_stage.values())
     stage_ms = {k: round(by_stage.get(k, 0.0) / window, 4)
-                for k in (*MEMBRANE_STAGES, "smooth.scatter", "curv_smooth", "outside")}
+                for k in (*MEMBRANE_STAGES, "membrane.smooth.scatter", "membrane.curv_smooth",
+                          "outside")}
     phase("membrane_path", system=label, lipids=dev.n_lipids, atoms=len(spec.subset),
           frames=n_frames, window=window, wire=repr(_wire()), patch_cap=dev.patch_cap,
           frames_overflowed=overflowed, build_s=round(t_build, 3),

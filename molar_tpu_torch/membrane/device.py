@@ -347,7 +347,15 @@ class MembraneWindow(nn.Module):
     (B, L) int32, ``nb_ids`` (B, L, K) int32 (-1 where not a neighbour),
     ``nb_mask`` (B, L, K) and ``order[sp]``, one (B, n_sp, n - 2) a tail.
     Where ``overflow`` is set, that frame's results are undefined. No host
-    sync: every constant is made here, on ``device``."""
+    sync: every constant is made here, on ``device``.
+
+    Each stage is a :mod:`~molar_tpu_torch.tracing` span ``membrane.<stage>``
+    (``unwrap_markers``, ``patches``, ``normals``, ``smooth`` holding
+    ``smooth.fit``, ``smooth.voronoi`` and ``smooth.scatter``, ``order``,
+    ``curv_smooth``) with a device event pair: ``membrane.patches@device``
+    and ``membrane.smooth.voronoi@device`` are what ``portbench/``'s
+    ``membrane_patches_ms_per_frame`` and ``membrane_voronoi_ms_per_frame``
+    read."""
 
     def __init__(self, spec: MembraneSpec, patch_cap: int, device):
         super().__init__()
@@ -429,7 +437,7 @@ class MembraneWindow(nn.Module):
         B, L, K = pid.shape
         valid = valid & pmask.any(dim=2)
 
-        with tracing.span("smooth.fit"):
+        with tracing.span("membrane.smooth.fit", device=markers.device):
             # local frames: columns (n x ex), (n x (n x ex)), -n
             c0 = _cross(normals, self.ex.expand_as(normals))
             c1 = _cross(normals, c0)
@@ -483,7 +491,7 @@ class MembraneWindow(nn.Module):
             vn = _unit(torch.stack([d, e, -torch.ones_like(d)], dim=-1))
             new_normals = _mat3(to_lab, vn)
 
-        with tracing.span("smooth.voronoi"):
+        with tracing.span("membrane.smooth.voronoi", device=markers.device):
             # Voronoi cells in the local tangent plane
             pts2 = torch.where(pmask[..., None], local[..., :2], 0.0)
             pts2 = torch.where(torch.isfinite(pts2), pts2, 0.0)
@@ -513,7 +521,7 @@ class MembraneWindow(nn.Module):
         valid = valid & ~runaway
         new_markers = markers
         if not last:
-            with tracing.span("smooth.scatter"):
+            with tracing.span("membrane.smooth.scatter", device=markers.device):
                 # Lipids invalidated this pass keep their markers; valid
                 # owners give member j their fitted projection of j.
                 new_markers = torch.where(valid[..., None],
@@ -560,7 +568,8 @@ class MembraneWindow(nn.Module):
     def forward(self, transport, boxes, invs):
         opt = self.options
         L = self.L
-        with tracing.span("unwrap_markers"):
+        dev = self.ex.device
+        with tracing.span("membrane.unwrap_markers", device=dev):
             coords = decode_window_coords(transport)
             B = coords.shape[0]
             if self.triclinic:
@@ -585,10 +594,10 @@ class MembraneWindow(nn.Module):
             heads = self._seg_com(u, "head")
             tails = self._seg_com(u, "tail")
 
-        with tracing.span("patches"):
+        with tracing.span("membrane.patches", device=dev):
             pid, pmask, overflow = self._patches(heads, mi)
 
-        with tracing.span("normals"):
+        with tracing.span("membrane.normals", device=dev):
             # tail-head vectors + 2-pass normal seeding over the patch
             thv = _unit(heads - tails)
             vecs = thv
@@ -605,12 +614,12 @@ class MembraneWindow(nn.Module):
         valid = torch.ones(B, L, dtype=torch.bool, device=coords.device)
         markers = heads
         for it in range(n_pass):
-            with tracing.span("smooth"):
+            with tracing.span("membrane.smooth", device=dev):
                 (markers, normals, valid, nb_ids, nb_mask, meanc, gaussc,
                  areas) = self._smooth_pass(markers, normals, pid, pmask, valid, mi, rev,
                                             last=it == n_pass - 1)
 
-        with tracing.span("order"):
+        with tracing.span("membrane.order", device=dev):
             # 5. order parameters per species / tail (on unwrapped coords)
             order = {}
             for sp in self.species_names:
@@ -623,7 +632,7 @@ class MembraneWindow(nn.Module):
                              for tl, orders in self.sp_tails[sp]]
 
         if opt.n_shells_smoothing >= 1:
-            with tracing.span("curv_smooth"):
+            with tracing.span("membrane.curv_smooth", device=dev):
                 meanc, gaussc = self._curvature_smoothing(nb_ids, nb_mask, valid, meanc, gaussc)
 
         return {
@@ -826,11 +835,18 @@ class MembraneDevice:
                 f"patch capacity {self.patch_cap} overflowed; rebuild "
                 "MembraneDevice with a larger patch_cap"
             )
+        # Each group's lipids, once a window; the last slot (False) is what a
+        # neighbour id of -1 (no neighbour) reads.
+        in_groups = []
+        for gr in self.groups.values():
+            in_group = np.zeros(self.n_lipids + 1, bool)
+            in_group[list(gr.lipid_ids)] = True
+            in_groups.append((gr, in_group))
         for fr in range(outs["valid"].shape[0]):
             valid = outs["valid"][fr]
             tilt = _tilt_deg(outs["normal"][fr], outs["thv"][fr])
-            for gr in self.groups.values():
-                self._group_update(gr, fr, outs, valid, tilt)
+            for gr, in_group in in_groups:
+                self._group_update(gr, in_group, fr, outs, valid, tilt)
 
     def merge_stats_from(self, other: "MembraneDevice") -> None:
         """Fold ``other``'s accumulated group statistics into this one's
@@ -841,9 +857,7 @@ class MembraneDevice:
         any order. Groups and species must match."""
         merge_groups(self.groups, other.groups)
 
-    def _group_update(self, gr: LipidGroup, fr, outs, valid, tilt):
-        in_group = np.zeros(self.n_lipids + 1, bool)
-        in_group[list(gr.lipid_ids)] = True
+    def _group_update(self, gr: LipidGroup, in_group, fr, outs, valid, tilt):
         nb_ids = outs["nb_ids"][fr]
         nb_mask = outs["nb_mask"][fr]
         for sp in gr.species_names:
@@ -860,14 +874,15 @@ class MembraneDevice:
             st["gauss_curv"].add(float(np.mean(outs["gauss_curv"][fr][idx])))
             st["n_neighbors"].add(float(np.mean(outs["n_neighbors"][fr][idx])))
             # neighbour species fractions (neighbours restricted to the group)
-            ids = nb_ids[idx]
-            ok = nb_mask[idx] & in_group[np.where(ids >= 0, ids, -1)] & (ids >= 0)
+            ids = nb_ids[idx].astype(np.intp)
+            ok = nb_mask[idx] & in_group[ids]
             total = int(ok.sum())
             if total:
-                nsp = self.species_of[np.where(ids >= 0, ids, 0)]
+                by_species = np.bincount(self.species_of[ids[ok]],
+                                         minlength=len(self.species_names))
                 for s in gr.species_names:
-                    scode = self.species_names.index(s)
-                    st["neib_fractions"][s].add(int((ok & (nsp == scode)).sum()) / total)
+                    st["neib_fractions"][s].add(
+                        int(by_species[self.species_names.index(s)]) / total)
             # order profiles: mean over the group's valid lipids of the species
             sp_l = self._sp_lipids[sp]
             rows = np.nonzero(sel[sp_l])[0]

@@ -528,16 +528,29 @@ class _BoxChecked:
 def stream_membrane(dev: MembraneDevice, reader, window: int):
     """``reader``'s windows of ``dev``'s rows through ``dev``, each folded
     into its group statistics before the next is read -> (frames, the
-    windows' outputs as numpy)."""
+    windows' outputs as numpy).
+
+    The pipeline's ``timings`` gain the span ``membrane.fold`` (each
+    window's outputs copied to the host and folded in, once the window's
+    device work has finished; ``membrane_fold_ms_per_frame``), the counter
+    ``membrane.valid_lipid_frames`` (valid lipids summed over the frames)
+    and, where a profiler recorded, the window function's
+    ``membrane.<stage>@device`` stream seconds."""
     dev.resolve_engine(window)
     pipe = WindowPipeline(_BoxChecked(reader, dev.check_boxes), window, dev.window_fn,
                           dev.device, quantized=trajectory.WIRE, subset=dev.subset)
+    cuda = dev.device.type == "cuda"
     frames, outs = 0, []
     for ids, res in pipe.run():
-        res = to_numpy(res)
-        dev.accumulate(res)
+        if cuda:
+            torch.cuda.current_stream(dev.device).synchronize()
+        with tracing.sink(pipe.timings), tracing.span("membrane.fold"):
+            res = to_numpy(res)
+            dev.accumulate(res)
+            tracing.count("membrane.valid_lipid_frames", int(res["valid"].sum()))
         outs.append(res)
         frames += len(ids)
+    tracing.resolve(pipe.timings, pipe.events)
     return frames, outs
 
 
